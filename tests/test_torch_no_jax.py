@@ -1,6 +1,6 @@
 """The port stands alone: no .py under qm_control_tpu_torch/ nor the chip
-scripts (chip_smoke.py, chip_diag.py) imports jax or the JAX package, or opens a path into it
-(a string argument naming the qm_control_tpu directory in a call that
+script chip_smoke.py imports jax or the JAX package, or opens a path into
+it (a string argument naming the qm_control_tpu directory in a call that
 opens, joins or loads a path).
 
 Checked statically (AST), because a test process may already hold jax in
@@ -16,7 +16,7 @@ PORT = os.path.join(ROOT, "qm_control_tpu_torch")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, n) for n in ("chip_smoke.py", "chip_diag.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(PORT):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)

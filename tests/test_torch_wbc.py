@@ -7,10 +7,11 @@ fused_cascade=True (on the CPU that is fused_hoqp_reference — without the
 flag it would compare against the pivoted XLA cascade, another solver).
 
 Tolerances: task matrices within rtol 1e-4 / atol 1e-3 (f32 products of
-O(100) entries, plus M-dot terms); torques within the repo's cross-path
-bounds, 1.0 Nm on stance and 2.0 Nm on trot (tests/test_kernels.py:134,
-:150): both optima jump under last-bit input dust (trot +-0.7 Nm,
-tests/test_kernels.py:185-193; see tests/test_torch_kernel_hoqp.py).
+O(100) entries, plus M-dot terms); torques within 0.1 Nm on stance
+(measured 0.008 Nm) and 2.0 Nm on trot (measured 1.96 Nm: the trot
+optimum wanders +-0.7 Nm under last-bit input dust,
+tests/test_kernels.py:185-193, and the two packages build the task
+matrices with different f32 rounding).
 """
 import dataclasses
 
@@ -34,7 +35,7 @@ from qm_control_tpu_torch.wbc.wbc import hierarchical_wbc_update as t_update
 
 torch.set_num_threads(1)
 
-CASES = {"stance": (np.ones(4, np.float32), np.zeros(24, np.float32), 1.0),
+CASES = {"stance": (np.ones(4, np.float32), np.zeros(24, np.float32), 0.1),
          "trot": (np.array([1., 0., 0., 1.], np.float32),
                   np.full(24, 0.05, np.float32), 2.0)}
 
