@@ -410,28 +410,8 @@ def main():
           f"{nbytes} B -> bound {1e3 * bound_ms:.3f} us "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}); "
           f"no single PyTorch call computes this cascade (library_ms null)")
-    # device view of one MPC period (10 ticks): kernels launched, device
-    # time, K1's share, and the device's busy share of the tick
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        period()
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    kernels_per_tick = sum(e.count for e in dev_events) / 10.0
-    device_ms = sum(dev_us(e) for e in dev_events) / 1e3 / 10.0
-    k1_dev_ms = sum(dev_us(e) for e in dev_events
-                    if "hoqp_fused" in e.key) / 1e3 / 10.0
-    print(f"[profile] per tick: {kernels_per_tick:.0f} kernels, "
-          f"{device_ms:.3f} ms device time (K1 {k1_dev_ms:.3f} ms), "
-          f"device busy {100.0 * device_ms / tick_ms:.1f}% of the "
-          f"{tick_ms:.3f} ms tick")
     # host wall time of the tick's layers, synchronized after each call
+    # (before the profiler, which may leave tracing on)
     c = state["carry"]
     args = (model, info, loop.gains, loop.tau_max, c.policy.X[0, 0],
             c.policy.U[0, 0], c.input_last, c.plant.q, c.plant.v,
@@ -452,6 +432,28 @@ def main():
               "plant step": lambda: step(c.plant)}
     print("[layers] host ms per call, synchronized: " + ", ".join(
         f"{name} {host_ms(fn):.2f}" for name, fn in layers.items()))
+    # device view of one MPC period (10 ticks): kernels launched, device
+    # time, K1's share, and the device's busy share of the tick
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        period()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels_per_tick = sum(e.count for e in dev_events) / 10.0
+    device_ms = sum(dev_us(e) for e in dev_events) / 1e3 / 10.0
+    k1_dev_ms = sum(dev_us(e) for e in dev_events
+                    if "hoqp_fused" in e.key) / 1e3 / 10.0
+    print(f"[profile] per tick: {kernels_per_tick:.0f} kernels, "
+          f"{device_ms:.3f} ms device time (K1 {k1_dev_ms:.3f} ms), "
+          f"device busy {100.0 * device_ms / tick_ms:.1f}% of the "
+          f"{tick_ms:.3f} ms tick; the tick after the profiler: "
+          f"{_cuda_ms(period, reps=3) / 10.0:.3f} ms")
     print(json.dumps({"kernels": [{
         "name": "hoqp_fused", "route": "cuda",
         "source": "qm_control_tpu_torch/kernels/csrc/hoqp_fused.cu",

@@ -19,10 +19,12 @@
 //     Schur-eliminated so every solve is 36-dimensional.
 //
 // What bounds it on this card: neither bytes nor FLOPs. Per cascade it
-// reads ~18 KB and does ~20-25 MFLOP of f32, but as ~63 dependent 36-step
-// Gauss-Jordan eliminations (3 levels x (1 + 2 x qp_iters) + projectors)
-// inside one block: the time is the serial chain of ~thousands of block
-// barriers. The design keeps every matrix resident in shared memory at
+// moves ~20 KB; the cascade needs ~10 MFLOP of f32 and K1 does ~34 (it
+// rebuilds the Schur matrix and its inverse for the corrector, and each
+// Gauss-Jordan step updates the whole augmented buffer), as ~63 dependent
+// 36-step Gauss-Jordan eliminations (3 levels x (1 + 2 x qp_iters) +
+// projectors) inside one block: the time is the serial chain of
+// ~thousands of block barriers. The design keeps every matrix resident in shared memory at
 // exact shape (dynamic shared memory, ~96 KB), ping-pongs the GJ augmented
 // buffer so each elimination step costs one barrier, and reduces with warp
 // shuffles. Redesigning it for latency (warp-per-row GJ, fewer barriers,
