@@ -12,7 +12,8 @@ of them passed):
      real stance/trot WBC stacks built by the port's wbc/tasks.py on the
      GPU; beside each, the f32 spread of the cascade (the plain version on
      the CPU against itself on the card, and how far 1e-7 input dust
-     moves K1 and the plain version);
+     moves K1 and the plain version); on the real stacks, two launches of
+     K1 on the same inputs, cold and warm, must agree bit for bit;
   4. the main path: ControlLoop(device="cuda").run_ticks for 500 ticks of
      the standing configuration of experiments.standing_ee_hold at full
      width (1 kHz ticks, MPC horizon 1.0 s / dt 0.015 -> the hold policy
@@ -135,8 +136,8 @@ def _k1_work(ma0, nv, ma1, ma2, iters, nx=36):
     does them: a product of (m, k) and (k, n) is 2 m k n; a Gauss-Jordan
     inverse of order n is 2 n^3 (the identity half is never multiplied);
     one Schur matrix S and one inverse per IP iteration (the predictor and
-    the corrector share the same d; K1 builds both twice); level 0's basis
-    Z is the identity, so its A Z, D Z and Z z cost nothing."""
+    the corrector share the same d); level 0's basis Z is the identity, so
+    its A Z, D Z and Z z cost nothing."""
     def mv(m, n):
         return 2 * m * n
 
@@ -295,6 +296,16 @@ def main():
         if not torch.equal(xk0, xk):
             raise AssertionError(f"K1 {name}: warm with validity 0 != cold")
         print(f"[k1 {name}] warm with validity 0 equals cold bit for bit")
+        # determinism: K1 holds one result per input (its warp-level
+        # pivot search and reductions must not depend on scheduling)
+        xk2, wk2 = K.fused_hoqp(*st, return_warm=True)
+        xkw2 = K.fused_hoqp(*nudged, warm=wk)
+        if not (torch.equal(xk2, xk) and torch.equal(wk2, wk)
+                and torch.equal(xkw2, xkw)):
+            raise AssertionError(f"K1 {name}: two launches on the same "
+                                 f"inputs differ")
+        print(f"[k1 {name}] two launches on the same inputs equal bit for "
+              f"bit (cold x and warm_out, warm x)")
 
         def tau(x):
             return T.recover_torques(m_, x.to(dev))
