@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases (each fails loudly; the last stdout line is printed only when all
-of them passed):
+of them passed; each prints its wall time):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build K1 (kernels/csrc/hoqp_fused.cu) with nvcc for sm_90a;
   3. K1 cold and warm against its plain PyTorch version on the card: 16
@@ -14,16 +14,32 @@ of them passed):
      the CPU against itself on the card, and how far 1e-7 input dust
      moves K1 and the plain version); on the real stacks, two launches of
      K1 on the same inputs, cold and warm, must agree bit for bit;
-  4. the main path: ControlLoop(device="cuda").run_ticks for 500 ticks of
-     the standing configuration of experiments.standing_ee_hold at full
-     width (1 kHz ticks, MPC horizon 1.0 s / dt 0.015 -> the hold policy
-     has 67 nodes, arm_settling_time 0), with the K1 launch count reset
-     just before and read just after; the first 10 ticks are held against
-     the same ticks with cascade_plain called explicitly on the card;
+  4. the tick path without an MPC stage: ControlLoop.run_ticks for 100
+     ticks of the standing configuration at full width (1 kHz ticks, the
+     hold policy of 67 nodes, arm_settling_time 0), with the K1 launch
+     count reset just before and read just after; the first 10 ticks are
+     held against the same ticks with cascade_plain called on the card;
+  4a. the MPC on the card: the port's MpcSolver on the golden scenario of
+     tests/test_golden.py, held to tests/golden_standing.json at that
+     test's bounds; then one cold and one warm mpc_step at full width
+     (N = 67) on the trot schedule of standing_ee_hold, on the card and on
+     the CPU from the same inputs (cost 1e-3 relative, X 2e-3, W 0.5);
+  4b. the main path: experiments.standing_ee_hold(gait="trot",
+     duration=0.25, transient=0.0, device="cuda") at full width: warm-up
+     solves, 50 MPC periods of settling, 25 of trot, 750 ticks, each with
+     one K1 launch (count reset before, read after); every metric finite,
+     safe, and the EE errors within the reference's 3.5 mm / 2.6 deg,
+     which the JAX package's own run of the same call holds
+     (docs/hold_reference_jax.py). It runs in a child process of this
+     script, beside phases 3-4a (the host is the bottleneck of both);
   5. times with CUDA events after warm-up: ms per tick, K1 ms per launch,
      the plain version's ms, and the bound of K1's work on an H100; a
-     torch.profiler view of one MPC period (kernels and device time per
-     tick, the device's busy share); the host time of each layer.
+     torch.profiler view of one MPC period of ticks; the host time of each
+     tick layer; the MPC solve (warm-started, N = 67, median of 9, and
+     once with unrolled_ops=False), ms per MPC cycle (1 solve + 10 ticks),
+     the host syncs of one cycle, and a profile of one solve (kernels,
+     device ms, busy share, host ms of linearization, Riccati sweep and
+     line search).
 Without a CUDA device it exits non-zero before printing any result.
 """
 import json
@@ -35,7 +51,20 @@ import time
 
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores, SXM, 700 W
 H100_BYTES_PER_S = 3.35e12  # HBM3
-MAIN_TICKS = 500
+TICKS = 100                 # phase 4
+# phase 4b: the main path. The JAX package's standing_ee_hold uses 25
+# warm-up solves; an eager solve on the card takes ~3 s, so the smoke run
+# cuts them to 5 to stay inside its time limit.
+HOLD = dict(gait="trot", duration=0.25, transient=0.0, warmup=5)
+HOLD_TICKS = (50 + 25) * 10         # settling + trot periods x 10 ticks
+# the JAX package's own run of standing_ee_hold(gait="trot",
+# duration=0.25, transient=0.0, warmup=25) on the CPU
+# (docs/hold_reference_jax.py); it holds the reference's gates, so the
+# port is held to them
+JAX_HOLD = dict(ee_pos_err_max_mm=2.5492957793176174,
+                ee_ori_err_max_deg=0.05422760989949518)
+HOLD_GATES = dict(ee_pos_err_max_mm=3.5, ee_ori_err_max_deg=2.6)
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def _cuda_ms(fn, reps=7, inner=1):
@@ -173,27 +202,104 @@ def _k1_work(ma0, nv, ma1, ma2, iters, nx=36):
     return flops, 4 * (n_in + nx + 9 * w)
 
 
-def main():
+def _standing():
+    """(x (30,), s (37,)): the spawn state at 0.38 m and the hold target
+    of experiments._standing_setup."""
+    from qm_control_tpu_torch.experiments import _standing_setup
+    _, _, q0, s = _standing_setup(None)
+    x = s[:30].astype("float32")
+    x[6:30] = q0
+    return x, s
+
+
+def _hold_problem(dev):
+    """(target, mode schedule) of standing_ee_hold(gait="trot") on `dev`:
+    the hold target and stance with the trot inserted at 0.5 s."""
+    from qm_control_tpu_torch.gaits.library import GAIT_LIBRARY, GaitSchedule
+    from qm_control_tpu_torch.ocp.reference import target_from_knots
+    _, s = _standing()
+    gs = GaitSchedule(GAIT_LIBRARY["stance"])
+    gs.insert_template(GAIT_LIBRARY["trot"], 0.5)
+    return (target_from_knots([0.0, 5.25], [s, s], device=dev),
+            gs.mode_schedule(0.0, 3.0, device=dev))
+
+
+def _solve_pair(ocp, model, info, cfg, dev, settings):
+    """Cold mpc_step at t = 0.45 s (the horizon crosses into the trot),
+    then warm 10 ms later from a perturbed state, at full width."""
     import numpy as np
+    import torch
+    from qm_control_tpu_torch.mpc.mpc import mpc_step
+    x0, _ = _standing()
+    x1 = x0.copy()
+    x1[:3] += np.float32([0.02, -0.01, 0.01])
+    target, ms = _hold_problem(dev)
+    N = cfg.mpc.num_nodes
+    f32 = dict(dtype=torch.float32, device=dev)
+    z = torch.zeros((), **f32)
+    cold = mpc_step(ocp, model, info, cfg, settings, torch.tensor(0.45, **f32),
+                    torch.tensor(x0, device=dev), target, ms,
+                    torch.zeros(N, 30, **f32), torch.zeros(N + 1, 30, **f32),
+                    z, torch.ones((), dtype=torch.bool, device=dev))
+    args = (torch.tensor(0.46, **f32), torch.tensor(x1, device=dev), target,
+            ms, cold.W, cold.X, torch.tensor(0.01, **f32),
+            torch.zeros((), dtype=torch.bool, device=dev))
+
+    def warm(st=settings):
+        return mpc_step(ocp, model, info, cfg, st, *args)
+    return cold, warm(), warm
+
+
+def main_path():
+    """Phase 4b, run as `chip_smoke.py --main-path` in a child process:
+    prints one JSON line with standing_ee_hold's result, the wall time and
+    the K1 launches of the run."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from qm_control_tpu_torch.experiments import standing_ee_hold
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    K.build()                      # the parent built it: found on disk
+    torch.cuda.synchronize()
+    K.launch_count = 0
+    t0 = time.perf_counter()
+    res = standing_ee_hold(**HOLD, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_count
+    arrays = res.pop("log").as_arrays()
+    res["finite"] = bool(all(np.isfinite(v).all() for v in arrays.values()
+                             if v.dtype.kind == "f"))
+    res.update(launches=launches, wall_s=wall,
+               logged_cycles=int(len(arrays["t"])))
+    print(json.dumps({"main_path": res}))
+    return 0
+
+
+class _Clock:
+    """Prints each phase's wall time."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, name):
+        now = time.perf_counter()
+        print(f"[wall] phase {name}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
+def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import dataclasses
+    sys.path.insert(0, ROOT)
+    import tempfile
 
-    from qm_control_tpu_torch.config import MpcConfig, QmConfig
     from qm_control_tpu_torch.kernels import hoqp_fused as K
-    from qm_control_tpu_torch.models import centroidal as C
-    from qm_control_tpu_torch.models import default_q, load_model
-    from qm_control_tpu_torch.runtime import plant as P
-    from qm_control_tpu_torch.runtime.estimator import rbd_state_from_plant
-    from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
-    from qm_control_tpu_torch.wbc import tasks as T
-    from qm_control_tpu_torch.wbc.wbc import wbc_stack
 
-    dev = torch.device("cuda")
+    clock = _Clock()
     # ---- 1. the card -------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -211,7 +317,36 @@ def main():
         if "registers" in line or "spill" in line or "smem" in line:
             print("[build] " + line.strip())
     print(f"[build] dynamic shared memory per block: {K.smem_bytes()} B")
+    clock.done("1-2")
 
+    # ---- 4b runs in a child process (main_path) beside phases 3-4a -----
+    with tempfile.TemporaryFile(mode="w+") as child_out:
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                  "--main-path"], cwd=ROOT, stdout=child_out,
+                                 stderr=subprocess.STDOUT, text=True)
+        try:
+            return _phases(smi, clock, child, child_out)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+
+
+def _phases(smi, clock, child, child_out):
+    """Phases 3-5 (phase 4b is `child`, read after phase 4a)."""
+    import numpy as np
+    import torch
+
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.models import centroidal as C
+    from qm_control_tpu_torch.models import default_q, load_model
+    from qm_control_tpu_torch.runtime import plant as P
+    from qm_control_tpu_torch.runtime.estimator import rbd_state_from_plant
+    from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
+    from qm_control_tpu_torch.wbc import tasks as T
+    from qm_control_tpu_torch.wbc.wbc import wbc_stack
+
+    dev = torch.device("cuda")
     # ---- 3. K1 against its plain version on the card ------------------
     def to_tasks(stack):
         return [T.Task(*[torch.as_tensor(a, device=dev) for a in t])
@@ -325,53 +460,44 @@ def main():
               f"{float(np.median(moves[:, 2])):.4f}, max "
               f"{moves[:, 2].max():.4f}")
     torch.cuda.synchronize()
+    clock.done("3")
 
-    # ---- 4. the main path ---------------------------------------------
-    cfg = QmConfig().with_(mpc=MpcConfig(time_horizon=1.0, dt=0.015,
-                                         num_iterations=1))
-    cfg = cfg.with_(wbc=dataclasses.replace(cfg.wbc, arm_settling_time=0.0))
+    # ---- 4. the tick path, without an MPC stage ------------------------
+    from qm_control_tpu_torch.experiments import _default_cfg
+    cfg = _default_cfg()        # standing_ee_hold's: N = 67, 1 iteration
     loop_cfg = LoopConfig(control_freq=1000.0)
     q0 = default_q(base_pos=(0, 0, 0.38))
     loop = ControlLoop(model, info, cfg, loop_cfg, device="cuda")
     carry0 = loop.init_carry(q0)
-    print(f"[main] hold policy N = {cfg.mpc.num_nodes} intervals, "
+    print(f"[ticks] hold policy N = {cfg.mpc.num_nodes} intervals, "
           f"ticks per MPC period {loop_cfg.ticks_per_cycle}")
     ee0 = rbd_state_from_plant(model, carry0.plant.q, carry0.plant.v)[48:51]
     torch.cuda.synchronize()
     K.launch_count = 0
     t_start = time.perf_counter()
-    carry, out100 = loop.run_ticks(carry0, 100)
-    ee100 = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)[48:51]
-    carry, out400 = loop.run_ticks(carry, MAIN_TICKS - 100)
+    carry, out = loop.run_ticks(carry0, TICKS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = K.launch_count
-    q_all = torch.cat([out100.q, out400.q])
     ee = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)[48:51]
-    dz100 = float((out100.q[:, 2] - 0.38).abs().max())
-    dz = float((q_all[:, 2] - 0.38).abs().max())
-    drift100, drift = float((ee100 - ee0).norm()), float((ee - ee0).norm())
-    safe = bool(out100.safe.all()) and bool(out400.safe.all())
-    print(f"[main] {MAIN_TICKS} ticks in {wall:.2f} s wall "
-          f"({1e3 * wall / MAIN_TICKS:.2f} ms/tick incl. first use), "
-          f"K1 launches {launches}, safe {safe}; after 100 ticks "
-          f"max|z - 0.38| {dz100:.4f} m, EE drift {1e3 * drift100:.2f} mm; "
-          f"after {MAIN_TICKS}: {dz:.4f} m, {1e3 * drift:.2f} mm")
-    if launches != MAIN_TICKS:
-        raise AssertionError(f"K1 launched {launches} times in "
-                             f"{MAIN_TICKS} ticks")
-    if not (bool(torch.isfinite(q_all).all())
-            and bool(torch.isfinite(out100.torques).all())
-            and bool(torch.isfinite(out400.torques).all())):
-        raise AssertionError("main path produced non-finite values")
+    dz = float((out.q[:, 2] - 0.38).abs().max())
+    drift = float((ee - ee0).norm())
+    safe = bool(out.safe.all())
+    print(f"[ticks] {TICKS} ticks in {wall:.2f} s wall "
+          f"({1e3 * wall / TICKS:.2f} ms/tick incl. first use), "
+          f"K1 launches {launches}, safe {safe}, max|z - 0.38| {dz:.4f} m, "
+          f"EE drift {1e3 * drift:.2f} mm")
+    if launches != TICKS:
+        raise AssertionError(f"K1 launched {launches} times in {TICKS} ticks")
+    if not (bool(torch.isfinite(out.q).all())
+            and bool(torch.isfinite(out.torques).all())):
+        raise AssertionError("the tick path produced non-finite values")
     if not safe:
-        raise AssertionError("main path left the safe set")
-    # the CPU sanity test's bounds: base height within 1 cm over the whole
-    # run, the EE within 5 mm over its 100 ticks. The EE drift after 500
-    # ticks of the hold policy (no MPC stage yet) is printed, not held.
-    if dz >= 0.01 or drift100 >= 0.005:
-        raise AssertionError(f"standing hold drifted: dz {dz}, EE after "
-                             f"100 ticks {drift100}")
+        raise AssertionError("the tick path left the safe set")
+    # the CPU sanity test's bounds: base height within 1 cm, the EE within
+    # 5 mm over 100 ticks of the hold policy
+    if dz >= 0.01 or drift >= 0.005:
+        raise AssertionError(f"standing hold drifted: dz {dz}, EE {drift}")
     # first 10 ticks against cascade_plain, called explicitly on the card;
     # the closed loop amplifies last-bit differences through the landing
     # transient, so the bound adds twice the plain loop's own spread
@@ -387,14 +513,105 @@ def main():
             plant=carry0.plant._replace(q=qd)), 10)
         band = np.maximum(band, [float((o.q - ref.q).abs().max()),
                                  float((o.torques - ref.torques).abs().max())])
-    gq = float((out100.q[:10] - ref.q).abs().max())
-    gt = float((out100.torques[:10] - ref.torques).abs().max())
-    print(f"[main] ticks 1-10 vs cascade_plain: max|dq| {gq:.3e} "
+    gq = float((out.q[:10] - ref.q).abs().max())
+    gt = float((out.torques[:10] - ref.torques).abs().max())
+    print(f"[ticks] ticks 1-10 vs cascade_plain: max|dq| {gq:.3e} "
           f"(spread {band[0]:.3e}), max|dtau| {gt:.3e} Nm "
           f"(spread {band[1]:.3e})")
     if not (gq <= 2 * band[0] + 1e-4 and gt <= 2 * band[1] + 0.1):
-        raise AssertionError("main path with K1 disagrees with the plain "
-                             "cascade on the card")
+        raise AssertionError("the tick path with K1 disagrees with the "
+                             "plain cascade on the card")
+    clock.done("4")
+
+    # ---- 4a. the MPC on the card ----------------------------------------
+    from qm_control_tpu_torch.config import MpcConfig, QmConfig
+    from qm_control_tpu_torch.gaits.library import GAIT_LIBRARY, GaitSchedule
+    from qm_control_tpu_torch.mpc.mpc import MpcSolver
+    from qm_control_tpu_torch.ocp.problem import make_ocp
+    from qm_control_tpu_torch.ocp.reference import target_from_knots
+    from qm_control_tpu_torch.solver.sqp import SqpSettings
+    # the golden scenario of tests/test_golden.py at that test's bounds
+    gcfg = QmConfig().with_(mpc=MpcConfig(time_horizon=0.5, dt=0.025,
+                                          num_iterations=3))
+    xg, sg = _standing()
+    pol = MpcSolver(model, info, gcfg, device="cuda").solve(
+        0.0, torch.tensor(xg, device=dev),
+        target_from_knots([0.0, 10.0], [sg, sg], device=dev),
+        GaitSchedule(GAIT_LIBRARY["stance"]).mode_schedule(0.0, 10.0,
+                                                           device=dev))
+    with open(os.path.join(ROOT, "tests", "golden_standing.json")) as fh:
+        golden = json.load(fh)
+    U, X = pol.U.cpu().numpy(), pol.X.cpu().numpy()
+    gaps = dict(
+        cost=abs(float(pol.cost) - golden["cost"])
+        / max(1.0, abs(golden["cost"])),
+        x_mid=float(np.abs(X[10] - golden["x_mid"]).max()),
+        u_first=float(np.abs(U[0] - golden["u_first"]).max()),
+        u_mid=float(np.abs(U[10] - golden["u_mid"]).max()))
+    fz = (U[:, 2] + U[:, 5] + U[:, 8] + U[:, 11])[:-1].mean()
+    print(f"[mpc golden] cost {float(pol.cost):.6f} (golden "
+          f"{golden['cost']:.6f}); gaps: cost {gaps['cost']:.2e} rel "
+          f"(bound 1e-3), X[10] {gaps['x_mid']:.2e} (2e-3), U[0] "
+          f"{gaps['u_first']:.2e} N (0.5), U[10] {gaps['u_mid']:.2e} N "
+          f"(0.5); mean fz {fz:.2f} N vs m g "
+          f"{model.total_mass * 9.81:.2f} N, final z {X[-1, 8]:.4f} m")
+    if not (gaps["cost"] <= 1e-3 and gaps["x_mid"] <= 2e-3
+            and gaps["u_first"] <= 0.5 and gaps["u_mid"] <= 0.5):
+        raise AssertionError(f"the MPC on the card misses the golden "
+                             f"solution: {gaps}")
+    if not (abs(fz / (model.total_mass * 9.81) - 1.0) <= 0.05
+            and 0.37 < X[-1, 8] < 0.41 and np.abs(U[:, 12:24]).max() < 2.0):
+        raise AssertionError("the golden solution's invariants fail")
+    # full width: cold + warm mpc_step on the card and on the CPU
+    ocp = make_ocp(model, info, cfg)
+    settings = SqpSettings(num_iterations=cfg.mpc.num_iterations)
+    gpu = _solve_pair(ocp, model, info, cfg, dev, settings)
+    cpu = _solve_pair(ocp, model, info, cfg, torch.device("cpu"), settings)
+    for label, a, b in (("cold", gpu[0], cpu[0]), ("warm", gpu[1], cpu[1])):
+        dc = abs(float(a.cost) - float(b.cost)) / max(1.0, abs(float(b.cost)))
+        dx = float((a.X.cpu() - b.X).abs().max())
+        dw = float((a.W.cpu() - b.W).abs().max())
+        print(f"[mpc N={cfg.mpc.num_nodes} {label}] card vs CPU: cost "
+              f"{float(a.cost):.6f} / {float(b.cost):.6f} ({dc:.2e} rel), "
+              f"max|dX| {dx:.2e}, max|dW| {dw:.2e}; alpha "
+              f"{float(a.alpha)} / {float(b.alpha)}")
+        if not (dc <= 1e-3 and dx <= 2e-3 and dw <= 0.5
+                and bool(torch.isfinite(a.X).all())):
+            raise AssertionError(f"the {label} solve on the card disagrees "
+                                 f"with the CPU")
+    clock.done("4a")
+
+    # ---- 4b. the main path (the child process) ---------------------------
+    child.wait(timeout=1100)
+    child_out.seek(0)
+    lines = child_out.read().splitlines()
+    for line in lines:
+        if not line.startswith('{"main_path"'):
+            print("[4b child] " + line)
+    if child.returncode != 0 or not lines \
+            or not lines[-1].startswith('{"main_path"'):
+        raise AssertionError(f"phase 4b failed (exit {child.returncode})")
+    hold = json.loads(lines[-1])["main_path"]
+    print(f"[main] standing_ee_hold({', '.join(f'{k}={v!r}' for k, v in HOLD.items())}"
+          f", device='cuda'): {hold['wall_s']:.1f} s wall, K1 launches "
+          f"{hold['launches']} in {HOLD_TICKS} ticks, safe {hold['safe']}, "
+          f"finite {hold['finite']}; EE {hold['ee_pos_err_max_mm']:.3f} mm "
+          f"/ {hold['ee_ori_err_max_deg']:.4f} deg (gates 3.5 mm / 2.6 deg; "
+          f"the JAX package's run {JAX_HOLD['ee_pos_err_max_mm']:.3f} mm / "
+          f"{JAX_HOLD['ee_ori_err_max_deg']:.4f} deg); plan "
+          f"{hold['ee_plan_err_max_mm']:.3f} mm, execution "
+          f"{hold['ee_exec_err_max_mm']:.3f} mm, roll p-p "
+          f"{hold['roll_pp_deg']:.4f} deg; {hold['cycle_timer']}")
+    if hold["launches"] != HOLD_TICKS:
+        raise AssertionError(f"K1 launched {hold['launches']} times in "
+                             f"{HOLD_TICKS} ticks of the main path")
+    if not (hold["finite"] and hold["safe"]):
+        raise AssertionError("the main path is not finite or not safe")
+    for key, bound in HOLD_GATES.items():
+        if not hold[key] <= bound:
+            raise AssertionError(f"main path {key} {hold[key]} > {bound}")
+    launches = hold["launches"]
+    clock.done("4b (wait)")
 
     # ---- 5. times ---------------------------------------------------------
     state = {"carry": carry}
@@ -415,7 +632,7 @@ def main():
     print(f"[time] {tick_ms:.3f} ms per control tick (median of 9 MPC "
           f"periods of 10 ticks, K1 included), K1 {1e3 * k1_ms:.1f} us per "
           f"launch (median), plain cascade on the card {plain_ms:.1f} ms, "
-          f"K1 launches per tick {launches / MAIN_TICKS:.0f}")
+          f"K1 launches per tick {launches / HOLD_TICKS:.0f}")
     print(f"[time] K1 work at shapes {ma0}/{nv}/{st[1].A.shape[0]}/"
           f"{st[2].A.shape[0]}: {flops / 1e6:.1f} MFLOP f32, "
           f"{nbytes} B -> bound {1e3 * bound_ms:.3f} us "
@@ -443,28 +660,80 @@ def main():
               "plant step": lambda: step(c.plant)}
     print("[layers] host ms per call, synchronized: " + ", ".join(
         f"{name} {host_ms(fn):.2f}" for name, fn in layers.items()))
-    # device view of one MPC period (10 ticks): kernels launched, device
-    # time, K1's share, and the device's busy share of the tick
+    # the MPC solve, warm-started at full width; the cycle
+    warm = gpu[2]
+    warm()
+    mpc_ms = _cuda_ms(warm, reps=9)
+    lu = SqpSettings(num_iterations=cfg.mpc.num_iterations,
+                     unrolled_ops=False)
+    warm(lu)
+    mpc_lu_ms = _cuda_ms(lambda: warm(lu), reps=1)
+    target, ms = _hold_problem(dev)
+    cyc = {"carry": loop.warmup(loop.init_carry(q0), target, ms, 1)}
+
+    def cycle():
+        cyc["carry"], _ = loop.run(cyc["carry"], target, ms, 1)
+    cycle()
+    cycle_ms = _cuda_ms(cycle, reps=3)
+    print(f"[time] MPC solve at N = {cfg.mpc.num_nodes}, warm-started: "
+          f"{mpc_ms:.1f} ms (median of 9, unrolled_ops=True), "
+          f"{mpc_lu_ms:.1f} ms (once, unrolled_ops=False); "
+          f"{cycle_ms:.1f} ms per MPC cycle (1 solve + "
+          f"{loop_cfg.ticks_per_cycle} ticks, median of 3)")
+    # host syncs inside one cycle (its caches warm)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            cycle()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    flagged = [w for w in caught
+               if "called a synchronizing CUDA operation" in str(w.message)]
+    print(f"[sync] one cycle: {len(flagged)} synchronizing calls flagged"
+          f" at {sorted({f'{w.filename}:{w.lineno}' for w in flagged})}")
+    # device views: one MPC period of ticks, one solve
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        period()
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    kernels_per_tick = sum(e.count for e in dev_events) / 10.0
-    device_ms = sum(dev_us(e) for e in dev_events) / 1e3 / 10.0
-    k1_dev_ms = sum(dev_us(e) for e in dev_events
-                    if "hoqp_fused" in e.key) / 1e3 / 10.0
-    print(f"[profile] per tick: {kernels_per_tick:.0f} kernels, "
-          f"{device_ms:.3f} ms device time (K1 {k1_dev_ms:.3f} ms), "
-          f"device busy {100.0 * device_ms / tick_ms:.1f}% of the "
+
+    def profiled(fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # kernels only: the CUDA side of a record_function range (the
+        # solver's "sqp." stages) spans its kernels and is not one
+        on_dev = [e for e in events if str(e.device_type).endswith("CUDA")
+                  and not e.key.startswith("sqp.")]
+        return (events, sum(e.count for e in on_dev),
+                sum(dev_us(e) for e in on_dev) / 1e3, on_dev)
+
+    _, n_k, d_ms, on_dev = profiled(period)
+    k1_dev_ms = sum(dev_us(e) for e in on_dev if "hoqp_fused" in e.key) / 1e3
+    print(f"[profile] per tick: {n_k / 10.0:.0f} kernels, "
+          f"{d_ms / 10.0:.3f} ms device time (K1 {k1_dev_ms / 10.0:.3f} ms), "
+          f"device busy {100.0 * d_ms / 10.0 / tick_ms:.1f}% of the "
           f"{tick_ms:.3f} ms tick; the tick after the profiler: "
           f"{_cuda_ms(period, reps=3) / 10.0:.3f} ms")
+    events, n_k, d_ms, _ = profiled(warm)
+    # the record_function ranges of solver/sqp.py, host side (the CUDA
+    # side of a range is listed under the same name with no host time)
+    stages = {}
+    for e in events:
+        if e.key.startswith("sqp.") and not str(e.device_type).endswith(
+                "CUDA"):
+            stages[e.key] = stages.get(e.key, 0.0) + e.cpu_time_total / 1e3
+    total = max(sum(stages.values()), 1e-9)
+    print(f"[profile] one warm solve: {n_k} kernels, {d_ms:.3f} ms device "
+          f"time, device busy {100.0 * d_ms / mpc_ms:.2f}% of the "
+          f"{mpc_ms:.1f} ms solve; host ms under the profiler: " + ", ".join(
+              f"{k[4:]} {v:.1f} ({100.0 * v / total:.0f}%)"
+              for k, v in sorted(stages.items())))
     print(json.dumps({"kernels": [{
         "name": "hoqp_fused", "route": "cuda",
         "source": "qm_control_tpu_torch/kernels/csrc/hoqp_fused.cu",
@@ -474,7 +743,9 @@ def main():
         "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None}],
-        "tick_ms": tick_ms, "main_ticks": MAIN_TICKS, "card": smi}))
+        "mpc_solve_ms": mpc_ms, "cycle_ms": cycle_ms, "tick_ms": tick_ms,
+        "main_ticks": HOLD_TICKS, "card": smi}))
+    clock.done("5")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -483,4 +754,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main_path() if sys.argv[1:] == ["--main-path"] else main())

@@ -4,8 +4,7 @@ qm_control_tpu/gaits/gait.py).
 Mode numbering matches OCS2 legged-robot: contact flags (LF, RF, LH, RH)
 pack as bits, mode = 8*LF + 4*RF + 2*LH + 1*RH (STANCE=15, FLY=0).
 A ModeSchedule is padded tensors of event times and mode ids, queryable
-at any t on the device. The gait library and swing planner come with the
-MPC slice.
+at any t on the device.
 """
 from typing import NamedTuple
 
@@ -19,14 +18,19 @@ MODE_NAMES = {
     6: "RF_LH", 7: "RF_LH_RH", 8: "LF", 9: "LF_RH", 10: "LF_LH",
     11: "LF_LH_RH", 12: "LF_RF", 13: "LF_RF_RH", 14: "LF_RF_LH", 15: "STANCE",
 }
+_NAME_TO_MODE = {v: k for k, v in MODE_NAMES.items()}
 STANCE, FLY = 15, 0
 
 
+def mode_name_to_number(name: str) -> int:
+    return _NAME_TO_MODE[name.upper()]
+
+
 def contact_flags_from_mode(mode):
-    """(4,) bool flags (LF, RF, LH, RH) from a mode number tensor."""
+    """(..., 4) bool flags (LF, RF, LH, RH) from mode number(s)."""
     mode = torch.as_tensor(mode)
     return torch.stack([(mode >> 3) & 1, (mode >> 2) & 1,
-                        (mode >> 1) & 1, mode & 1]).to(torch.bool)
+                        (mode >> 1) & 1, mode & 1], dim=-1).to(torch.bool)
 
 
 def mode_from_contact_flags(flags):
@@ -60,8 +64,18 @@ def mode_schedule_from_lists(event_times, modes, device="cuda",
 
 
 def mode_at_time(ms: ModeSchedule, t):
-    """Active mode at time t (device, branch-free)."""
+    """Active mode at time(s) t, any shape (device, branch-free)."""
     t = torch.as_tensor(t, dtype=ms.event_times.dtype,
                         device=ms.event_times.device)
-    idx = torch.searchsorted(ms.event_times, t.reshape(1), right=True)
-    return ms.modes.index_select(0, idx)[0]
+    idx = torch.searchsorted(ms.event_times, t.reshape(-1), right=True)
+    return ms.modes.index_select(0, idx).reshape(t.shape)
+
+
+def contact_flags_at_time(ms: ModeSchedule, t):
+    return contact_flags_from_mode(mode_at_time(ms, t))
+
+
+def foot_contact_sequence(ms: ModeSchedule, foot: int):
+    """(MAX_EVENTS+1,) bool contact flag of one foot per schedule phase."""
+    shift = (3, 2, 1, 0)[foot]
+    return ((ms.modes >> shift) & 1).to(torch.bool)

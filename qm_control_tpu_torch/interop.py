@@ -8,8 +8,10 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .gaits.gait import ModeSchedule
 from .kernels.hoqp_fused import WARM_ROWS, warm_width
 from .mpc.mpc import MpcPolicy
+from .ocp.reference import TargetTrajectory
 from .runtime.loop import CycleCarry
 from .runtime.plant import HybridCommand, PlantState
 
@@ -39,7 +41,7 @@ def warm_to_jax(warm) -> np.ndarray:
 
 
 def _t(a, dev, dtype=torch.float32):
-    return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
 
 def plant_state_from_numpy(q, v, t, cmd_buf, buf_head, anchors, ee_wrench,
@@ -62,12 +64,32 @@ def cycle_carry_from_numpy(leaves: dict, device="cuda") -> CycleCarry:
     dev = resolve_device(device)
     policy = leaves.get("policy")
     if policy is not None:
-        policy = MpcPolicy(**{
-            k: _t(policy[k], dev, torch.int32 if k == "modes"
-                  else torch.float32) for k in MpcPolicy._fields})
+        policy = policy_from_numpy(policy, device=dev)
     return CycleCarry(
         plant=plant_state_from_numpy(**leaves["plant"], device=dev),
         W_warm=_t(leaves["W_warm"], dev), X_warm=_t(leaves["X_warm"], dev),
         input_last=_t(leaves["input_last"], dev),
         last_yaw=_t(leaves["last_yaw"], dev), t=_t(leaves["t"], dev),
         safe=_t(leaves["safe"], dev, torch.bool), policy=policy)
+
+
+def target_from_numpy(times, states, device="cuda") -> TargetTrajectory:
+    """TargetTrajectory from the numpy leaves of an already padded JAX
+    target (times (K,), states (K, 37)), kept as they are."""
+    dev = resolve_device(device)
+    return TargetTrajectory(_t(times, dev), _t(states, dev))
+
+
+def mode_schedule_from_numpy(event_times, modes, device="cuda") -> ModeSchedule:
+    """ModeSchedule from the numpy leaves of a padded JAX mode schedule."""
+    dev = resolve_device(device)
+    return ModeSchedule(_t(event_times, dev), _t(modes, dev, torch.int32))
+
+
+def policy_from_numpy(policy: dict, device="cuda") -> MpcPolicy:
+    """MpcPolicy from a dict of the JAX MpcPolicy's leaves as numpy (any
+    leading stack axes kept)."""
+    dev = resolve_device(device)
+    return MpcPolicy(**{k: _t(policy[k], dev, torch.int32 if k == "modes"
+                              else torch.float32)
+                        for k in MpcPolicy._fields})

@@ -22,3 +22,21 @@ def const(array, like, dtype=None):
                                       device=like.device))
         _CACHE[key] = hit
     return hit[1]
+
+
+_SCALARS = {}
+
+
+def scalar(value, like):
+    """`value` (a Python or numpy number) as a cached 0-d tensor on the
+    device and in the dtype of `like`. Under torch.func's forward mode, a
+    0-d tensor times a Python float gets a float64 tangent (the float is
+    not treated as a weak scalar there), so code that forward-mode
+    differentiates 0-d scalars multiplies by these instead; the values are
+    the same, as a Python float is rounded to the tensor's dtype anyway."""
+    key = (float(value), like.device, like.dtype)
+    hit = _SCALARS.get(key)
+    if hit is None:
+        hit = torch.tensor(float(value), dtype=like.dtype, device=like.device)
+        _SCALARS[key] = hit
+    return hit

@@ -6,9 +6,9 @@ State / input layout as in the JAX module:
                q_joints(18) ]
   u in R^30 = [ contact forces 4x3 (LF, RF, LH, RH, world) ; qdot_j(18) ]
 
-This slice ports what the estimator and the WBC use. `flow_map` is here
-without its `ee_wrench` branch (which needs the OCP costs of the MPC
-slice); `linearize_flow_map` comes with the MPC slice.
+`flow_map` is here without its `ee_wrench` branch (the disturbance-aware
+MPC dynamics, not ported yet); `linearize_flow_map` is not ported (the
+MPC linearizes through ocp/linearize.py).
 """
 from dataclasses import dataclass
 
@@ -74,8 +74,8 @@ def flow_map(model: RobotModel, info: CentroidalInfo, x, u, ee_wrench=None):
     the frozen SRBD momentum matrix, joint rate = commanded joint velocity."""
     if ee_wrench is not None:
         raise NotImplementedError(
-            "flow_map(ee_wrench=...) needs the OCP costs of the MPC slice "
-            "(ROADMAP: MPC slice)")
+            "flow_map(ee_wrench=...): the EE-wrench branch of the MPC "
+            "dynamics is not ported yet")
     q = state_to_q(x)
     forces = u[:3 * NUM_CONTACTS].reshape(NUM_CONTACTS, 3)
     v_j = u[3 * NUM_CONTACTS:]

@@ -8,17 +8,18 @@ lane-parallel as (4,)-vectors. Products with zero entries of constant
 matrices are skipped, as in the JAX module, so both packages add the same
 terms in the same order.
 
-This slice ports what the control tick uses: `contact_positions` (the
-centroidal flow map's contact FK) and `base_velocity_from_momentum`
-(SRBD base rates). `foot_kinematics` and `ee_pose` come with the MPC slice.
+The arm chain (kinova j2n6s300) has constant origin rotations and all
+joint axes z. `foot_kinematics` (foot positions with their Jacobian
+blocks) and `ee_pose` serve the MPC's input map, linearization and costs.
 """
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ._const import const
-from .spec import CONTACT_FRAMES, CONTACT_LEG_JOINTS, NUM_BASE, REVOLUTE, RobotModel
+from ._const import const, scalar
+from .spec import (CONTACT_FRAMES, CONTACT_LEG_JOINTS, EE_FRAME, NUM_BASE,
+                   NUM_LEG_JOINTS, REVOLUTE, RobotModel)
 
 
 class R9(NamedTuple):
@@ -26,6 +27,17 @@ class R9(NamedTuple):
     r00: object; r01: object; r02: object
     r10: object; r11: object; r12: object
     r20: object; r21: object; r22: object
+
+    def col(self, j):
+        r = self
+        return ((r.r00, r.r10, r.r20), (r.r01, r.r11, r.r21),
+                (r.r02, r.r12, r.r22))[j]
+
+    def to_mat(self):
+        r = self
+        return torch.stack([stack3((r.r00, r.r01, r.r02)),
+                            stack3((r.r10, r.r11, r.r12)),
+                            stack3((r.r20, r.r21, r.r22))], dim=-2)
 
 
 def from_euler_zyx(zyx):
@@ -46,10 +58,10 @@ def _dot_const(row, v, vt=None):
         vi_arr = np.asarray(vi)
         if np.all(vi_arr == 0.0):
             continue
-        term = ri * (float(vi) if vi_arr.ndim == 0 else vt[i])
+        term = ri * (scalar(vi, ri) if vi_arr.ndim == 0 else vt[i])
         acc = term if acc is None else acc + term
     if acc is None:
-        return row[0] * 0.0
+        return row[0] * scalar(0.0, row[0])
     return acc
 
 
@@ -64,6 +76,22 @@ def rotv_const(R: R9, v):
     return (_dot_const((R.r00, R.r01, R.r02), cols, vt),
             _dot_const((R.r10, R.r11, R.r12), cols, vt),
             _dot_const((R.r20, R.r21, R.r22), cols, vt))
+
+
+def rotv(R: R9, v):
+    """R @ v for a 3-tuple of scalars v."""
+    vx, vy, vz = v
+    return (R.r00 * vx + R.r01 * vy + R.r02 * vz,
+            R.r10 * vx + R.r11 * vy + R.r12 * vz,
+            R.r20 * vx + R.r21 * vy + R.r22 * vz)
+
+
+def rott_v(R: R9, v):
+    """R^T @ v."""
+    vx, vy, vz = v
+    return (R.r00 * vx + R.r10 * vy + R.r20 * vz,
+            R.r01 * vx + R.r11 * vy + R.r21 * vz,
+            R.r02 * vx + R.r12 * vy + R.r22 * vz)
 
 
 def mul_const(R: R9, M):
@@ -91,6 +119,14 @@ def mul_ry(R: R9, ang):
               R.r20 * c - R.r22 * s, R.r21, R.r20 * s + R.r22 * c)
 
 
+def mul_rz(R: R9, ang):
+    """R @ Rz(ang): mixes columns 0, 1."""
+    c, s = torch.cos(ang), torch.sin(ang)
+    return R9(R.r00 * c + R.r01 * s, -R.r00 * s + R.r01 * c, R.r02,
+              R.r10 * c + R.r11 * s, -R.r10 * s + R.r11 * c, R.r12,
+              R.r20 * c + R.r21 * s, -R.r20 * s + R.r21 * c, R.r22)
+
+
 def cross(a, b):
     ax, ay, az = a
     bx, by, bz = b
@@ -115,6 +151,14 @@ class _LegChain(NamedTuple):
     calf_Xp: np.ndarray    # (4,3)
     foot_p: np.ndarray     # (4,3) foot frame offset in calf frame
     qidx: np.ndarray       # (12,) generalized-coordinate indices, leg-major
+
+
+class _ArmChain(NamedTuple):
+    XR: np.ndarray         # (6,3,3) joint origin rotations
+    Xp: np.ndarray         # (6,3) joint origins
+    qidx: np.ndarray       # (6,)
+    ee_p: np.ndarray       # (3,) EE frame offset in the last body
+    ee_R: np.ndarray       # (3,3)
 
 
 _CACHE = {}
@@ -154,6 +198,88 @@ def leg_chain(model: RobotModel) -> _LegChain:
     return _CACHE[key][1]
 
 
+def arm_chain(model: RobotModel) -> _ArmChain:
+    """Static arm-chain data; asserts the structure the chain relies on."""
+    key = (id(model), "arm")
+    if key not in _CACHE:
+        first = NUM_BASE + NUM_LEG_JOINTS
+        bodies = list(range(first, first + 6))
+        assert int(model.parent[first]) == NUM_BASE - 1
+        for b in bodies[1:]:
+            assert int(model.parent[b]) == b - 1
+        for b in bodies:
+            assert model.joint_type[b] == REVOLUTE
+            assert _axis_is(model.axis[b], (0, 0, 1))
+        fr = model.frame(EE_FRAME)
+        assert fr.body == bodies[-1]
+        _CACHE[key] = (model, _ArmChain(
+            np.asarray(model.X_tree_R[bodies]), np.asarray(model.X_tree_p[bodies]),
+            np.asarray(bodies, dtype=np.int64), np.asarray(fr.p),
+            np.asarray(fr.R)))
+    return _CACHE[key][1]
+
+
+def foot_kinematics(model: RobotModel, q):
+    """(p_feet (4,3), Jb (4,3,6), Jl (4,3,3)): foot positions plus linear
+    Jacobian blocks (base columns, own-leg columns), lane-parallel over
+    the 4 legs."""
+    st = leg_chain(model)
+    Rb = from_euler_zyx(q[3:6])
+    pb = (q[0], q[1], q[2])
+    q_legs = q[const(st.qidx, q, torch.int64)].reshape(4, 3)
+    q0, q1, q2 = q_legs[:, 0], q_legs[:, 1], q_legs[:, 2]
+
+    p_hip = add(pb, rotv_const(Rb, st.hip_Xp))
+    R1 = mul_rx(Rb, q0)
+    p_thigh = add(p_hip, rotv_const(R1, st.thigh_Xp))
+    R2 = mul_ry(R1, q1)
+    p_calf = add(p_thigh, rotv_const(R2, st.calf_Xp))
+    R3 = mul_ry(R1, q1 + q2)                            # Ry(a)Ry(b)=Ry(a+b)
+    p_foot = add(p_calf, rotv_const(R3, st.foot_p))
+
+    # joint axes in world: HAA = col x of Rb; HFE/KFE = col y of R1
+    a0 = Rb.col(0)
+    a1 = (R1.r01, R1.r11, R1.r21)
+    jl0 = cross(a0, sub(p_foot, p_hip))
+    jl1 = cross(a1, sub(p_foot, p_thigh))
+    jl2 = cross(a1, sub(p_foot, p_calf))
+    Jl = torch.stack([stack3(jl0), stack3(jl1), stack3(jl2)], dim=-1)
+
+    # base columns: prismatic x,y,z identity; revolute z, y, x at the base
+    # origin with world axes z, Rz y, Rz Ry x
+    cz, sz = torch.cos(q[3]), torch.sin(q[3])
+    cy, sy = torch.cos(q[4]), torch.sin(q[4])
+    az = (0.0, 0.0, 1.0)
+    ay = (-sz, cz, 0.0)
+    ax_ = (cz * cy, sz * cy, -sy)
+    r = sub(p_foot, pb)
+    rot_cols = torch.stack([stack3(cross(az, r)), stack3(cross(ay, r)),
+                            stack3(cross(ax_, r))], dim=-1)    # (4,3,3)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(4, 3, 3)
+    Jb = torch.cat([eye, rot_cols], dim=-1)                    # (4,3,6)
+    return stack3(p_foot), Jb, Jl
+
+
+def ee_pose(model: RobotModel, q):
+    """(p_ee (3,), R_ee (3,3)) via the base->arm chain (all-z axes)."""
+    st = arm_chain(model)
+    R = from_euler_zyx(q[3:6])
+    p = (q[0], q[1], q[2])
+    qa = q[const(st.qidx, q, torch.int64)]
+    eye = np.eye(3)
+    for d in range(6):
+        if not np.allclose(st.Xp[d], 0.0):
+            p = add(p, rotv_const(R, st.Xp[d]))
+        if not np.allclose(st.XR[d], eye):
+            R = mul_const(R, st.XR[d])
+        R = mul_rz(R, qa[d])
+    if not np.allclose(st.ee_p, 0.0):
+        p = add(p, rotv_const(R, st.ee_p))
+    if not np.allclose(st.ee_R, eye):
+        R = mul_const(R, st.ee_R)
+    return stack3(p), R.to_mat()
+
+
 def contact_positions(model: RobotModel, q):
     """(4,3) foot positions via the specialized leg chains."""
     st = leg_chain(model)
@@ -181,14 +307,16 @@ def mul_transpose(A: R9, B: R9) -> R9:
 
 def solve3_scalar(M: R9, b, damp=0.0):
     """Cramer solve M x = b with M as 9 scalars, b a 3-tuple."""
-    m00, m01, m02 = M.r00 + damp, M.r01, M.r02
-    m10, m11, m12 = M.r10, M.r11 + damp, M.r12
-    m20, m21, m22 = M.r20, M.r21, M.r22 + damp
+    if damp:
+        M = M._replace(r00=M.r00 + damp, r11=M.r11 + damp, r22=M.r22 + damp)
+    m00, m01, m02 = M.r00, M.r01, M.r02
+    m10, m11, m12 = M.r10, M.r11, M.r12
+    m20, m21, m22 = M.r20, M.r21, M.r22
     c00 = m11 * m22 - m12 * m21
     c01 = m12 * m20 - m10 * m22
     c02 = m10 * m21 - m11 * m20
     det = m00 * c00 + m01 * c01 + m02 * c02
-    inv_det = 1.0 / det
+    inv_det = torch.reciprocal(det)     # 1.0 / det: see _const.scalar
     bx, by, bz = b
     x = (c00 * bx + (m02 * m21 - m01 * m22) * by
          + (m01 * m12 - m02 * m11) * bz) * inv_det
@@ -206,7 +334,8 @@ def base_velocity_from_momentum(info, x):
     R = from_euler_zyx(zyx)
     RIc = mul_const(R, np.asarray(info.I_com_base))
     I_w = mul_transpose(RIc, R)
-    L = (x[3] * info.mass, x[4] * info.mass, x[5] * info.mass)
+    mass = scalar(info.mass, x)
+    L = (x[3] * mass, x[4] * mass, x[5] * mass)
     omega = solve3_scalar(I_w, L)
     r_w = rotv_const(R, np.asarray(info.r_com_base))
     v_com = (x[0], x[1], x[2])

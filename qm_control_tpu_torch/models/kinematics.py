@@ -7,8 +7,9 @@ so dJ/dt = jvp(J, q, v) exactly (torch.func.jvp here).
 
 Functions take the static RobotModel and a (24,) q; they are functional
 (no in-place writes, no host reads), so torch.func.vmap/jacfwd/jvp apply.
-The MPC-side chains (`leg_chain_fk`, `foot_kinematics`, `ee_chain_pose`)
-come with the MPC slice.
+The MPC uses the scalar-structured chains of models/chainfk.py; the JAX
+module's generic `leg_chain_fk`, `foot_kinematics` and `ee_chain_pose`
+are not ported.
 """
 from functools import partial
 

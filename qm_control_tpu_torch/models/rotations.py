@@ -106,6 +106,47 @@ def R_to_quat(R):
     return q * torch.sign(torch.where(w == 0, torch.ones_like(w), w))
 
 
+def quat_mul(a, b):
+    w1, x1, y1, z1 = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    w2, x2, y2, z2 = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], -1)
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_slerp(q0, q1, t):
+    """Spherical interpolation, shortest path, branch-free (Eigen's
+    Quaternion::slerp, reference EndEffectorConstraint.cpp:102)."""
+    d = torch.sum(q0 * q1, dim=-1)
+    q1 = torch.where(d[..., None] < 0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-6
+    safe_sin = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe_sin)
+    w1 = torch.where(small, t * torch.ones_like(theta),
+                     torch.sin(t * theta) / safe_sin)
+    q = w0[..., None] * q0 + w1[..., None] * q1
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_distance(q, q_ref):
+    """OCS2 quaternionDistance: the vector part of the error quaternion,
+    q.w q_ref.vec - q_ref.w q.vec - q.vec x q_ref.vec; zero iff q = +-q_ref
+    (reference EndEffectorConstraint.cpp:55-77)."""
+    w, v = q[..., 0], q[..., 1:]
+    wr, vr = q_ref[..., 0], q_ref[..., 1:]
+    return w[..., None] * vr - wr[..., None] * v \
+        - torch.linalg.cross(v, vr, dim=-1)
+
+
 def so3_log(R):
     """Matrix log of a rotation -> axis-angle vector (rotation error)."""
     tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]

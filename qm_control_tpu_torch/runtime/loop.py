@@ -1,21 +1,23 @@
-"""Closed-loop control: the real-time tick of qm_control_tpu/runtime/loop.py
-(make_cycle's tick scan, :190-229) driven by `ControlLoop.run_ticks`.
+"""Closed-loop control harness (port of qm_control_tpu/runtime/loop.py):
+plant @1 kHz <- WBC every control tick <- policy evaluation <- MPC @100 Hz,
+one MPC period per `cycle` call (QMController.cpp:128-190, :309-334).
 
-Each control tick runs the estimator (rbd_state_from_plant,
-observation_from_rbd), MRT policy evaluation of the executed policy,
+`make_cycle` builds the period: the estimator pass, one warm-started MPC
+solve (`mpc_step`), the MRT lag-stack roll, then `ticks` control ticks,
+each the estimator, MRT policy evaluation of the executed policy,
 hierarchical_wbc_update (K1 once per tick), the hybrid joint law
 (QMController::updateControlLaw :177-190: legs (posDes, velDes, kp=0, kd,
 tau_ff) gated by leg_command_start_time; arm (posDes, 0, kp_arm_wbc,
-kd_arm_wbc, tau_ff)), push_command and the plant substeps.
+kd_arm_wbc, tau_ff)), push_command and the plant substeps; then the
+cycle's metrics. Python loops stand in for the JAX package's lax.scan;
+nothing is read back to the host inside a cycle. As in the JAX cycle, the
+ticks' safety predicate checks the FRESH solve's cost.
 
-This slice has no MPC stage (make_cycle :164-187, `warmup`, `escape`,
-`run` come with the MPC slice). `run_ticks` executes the lagged policy
-`carry.policy[0]`, exactly as the ticks of the JAX loop's first cycle do
-with mrt_policy_lag=1 (they consume the policy `init_carry` seeded, a
-STANCE "hold current state" policy), and it keeps executing it past the
-first MPC period. Every MPC period it refreshes the yaw-unwrap reference
-from the estimator, as each JAX cycle does. The safety predicate checks
-the executed policy's cost (the JAX cycle checks the fresh solve's).
+`ControlLoop.run_ticks` runs ticks without an MPC stage: it executes the
+lagged policy `carry.policy[0]` (what the ticks of the first cycle do with
+mrt_policy_lag=1: the STANCE "hold current state" policy `init_carry`
+seeds) and checks safety against that executed policy's cost, refreshing
+the yaw-unwrap reference every MPC period.
 """
 from typing import NamedTuple, Optional
 
@@ -23,10 +25,16 @@ import numpy as np
 import torch
 
 from ..config import QmConfig, WbcGains
-from ..gaits.gait import STANCE, contact_flags_from_mode
+from ..gaits.gait import STANCE, ModeSchedule, contact_flags_from_mode
 from ..models import centroidal as C
+from ..models import kinematics as K
+from ..models.rotations import quat_distance
 from ..models.spec import RobotModel
-from ..mpc.mpc import MpcPolicy, evaluate_policy
+from ..mpc.mpc import MpcPolicy, evaluate_policy, mpc_step
+from ..ocp.problem import make_ocp
+from ..ocp.reference import TargetTrajectory, interpolate_ee_pose
+from ..solver.sqp import SqpSettings
+from ..utils.timers import RepeatedTimer
 from ..wbc.wbc import hierarchical_wbc_update
 from .estimator import observation_from_rbd, rbd_state_from_plant, rbd_to_qv
 from .plant import (HybridCommand, PlantConfig, PlantState, init_plant_state,
@@ -40,6 +48,8 @@ class LoopConfig(NamedTuple):
     leg_kd: float = 3.0                # QMController.cpp:182
     leg_command_start_time: float = 0.0
     plant: PlantConfig = PlantConfig()
+    mpc_wrench_feedthrough: bool = False  # the plant's measured EE wrench
+    # in the MPC dynamics (not ported: raises)
     mrt_policy_lag: int = 1   # ticks consume a policy this many MPC
     # periods old (the reference's async MRT semantics)
     delay_compensation_s: float = 0.0   # evaluate the executed policy at
@@ -67,21 +77,22 @@ class CycleCarry(NamedTuple):
 
 
 class CycleMetrics(NamedTuple):
-    """Per-cycle observability record (filled by the MPC slice's run)."""
-    ee_pos_err: torch.Tensor
-    ee_ori_err: torch.Tensor
+    """Per-cycle observability record (the QmVisualizer content of
+    reference qm_visualization.cpp:90-189, as tensors)."""
+    ee_pos_err: torch.Tensor   # scalar: ||p_ee - p_ref|| at cycle end
+    ee_ori_err: torch.Tensor   # scalar: |quat distance| at cycle end
     base_height: torch.Tensor
     mpc_cost: torch.Tensor
     safe: torch.Tensor
-    base_pose: torch.Tensor
-    ee_pos: torch.Tensor
-    ee_ref: torch.Tensor
-    feet_pos: torch.Tensor
-    forces: torch.Tensor
-    torques: torch.Tensor
-    x_des: torch.Tensor
-    mpc_alpha: torch.Tensor
-    mpc_defect: torch.Tensor
+    base_pose: torch.Tensor    # (6,) base position + zyx at cycle end
+    ee_pos: torch.Tensor       # (3,) measured EE position
+    ee_ref: torch.Tensor       # (3,) desired EE position
+    feet_pos: torch.Tensor     # (4,3) foot positions
+    forces: torch.Tensor       # (12,) WBC contact forces, last tick
+    torques: torch.Tensor      # (18,) WBC torques, last tick
+    x_des: torch.Tensor        # (30,) policy state at the last tick
+    mpc_alpha: torch.Tensor    # accepted SQP line-search step
+    mpc_defect: torch.Tensor   # max |shooting defect| of the solution
 
 
 class TickOutputs(NamedTuple):
@@ -94,9 +105,10 @@ class TickOutputs(NamedTuple):
 
 def make_tick(model: RobotModel, info: C.CentroidalInfo,
               loop_cfg: LoopConfig, device, cascade=None):
-    """tick(plant, input_last, t, safe, policy, yaw_ref, gains, tau_max)
-    -> ((plant, input_last, t, safe), (torques, forces)): one control
-    tick, the body of make_cycle's tick scan. cascade: see
+    """tick(plant, input_last, t, safe, policy, yaw_ref, gains, tau_max,
+    safety_cost=None) -> ((plant, input_last, t, safe), (torques, forces,
+    x_des)): one control tick executing `policy`; safety checks
+    `safety_cost` (default: policy.cost). cascade: see
     wbc.hierarchical_wbc_update (None = the K1 kernel wrapper)."""
     plant_step = make_plant_step(model, loop_cfg.plant)
     substeps = loop_cfg.substeps_per_tick
@@ -106,7 +118,7 @@ def make_tick(model: RobotModel, info: C.CentroidalInfo,
     arm_rows = 1.0 - leg_rows
 
     def tick(plant: PlantState, input_last, t, safe, policy: MpcPolicy,
-             yaw_ref, gains: WbcGains, tau_max):
+             yaw_ref, gains: WbcGains, tau_max, safety_cost=None):
         rbd_t = rbd_state_from_plant(model, plant.q, plant.v)
         x_t = observation_from_rbd(model, info, rbd_t, yaw_ref)
         x_des, u_des, mode = evaluate_policy(
@@ -129,8 +141,10 @@ def make_tick(model: RobotModel, info: C.CentroidalInfo,
         plant = push_command(plant, cmd)
         for _ in range(substeps):
             plant, _fc = plant_step(plant)
-        safe = safe & safety_check(x_t, policy.cost)
-        return (plant, u_des, t + tick_dt, safe), (wbc.torques, wbc.forces)
+        safe = safe & safety_check(
+            x_t, policy.cost if safety_cost is None else safety_cost)
+        return ((plant, u_des, t + tick_dt, safe),
+                (wbc.torques, wbc.forces, x_des))
 
     return tick
 
@@ -140,12 +154,111 @@ def _stack_policy(policy: MpcPolicy, lag: int) -> MpcPolicy:
                        for a in policy])
 
 
+def make_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
+               loop_cfg: LoopConfig, settings: Optional[SqpSettings] = None,
+               device="cuda", cascade=None):
+    """(cycle, warmup): cycle(carry, target, ms, gains) -> (carry',
+    CycleMetrics) runs one MPC period on `device`; warmup(carry, target,
+    ms) -> carry' runs one solve without advancing the plant."""
+    from .. import resolve_device
+    dev = resolve_device(device)
+    if loop_cfg.mpc_wrench_feedthrough:
+        raise NotImplementedError(
+            "mpc_wrench_feedthrough: the EE-wrench branch of the MPC "
+            "dynamics (centroidal.flow_map) is not ported yet")
+    settings = settings or SqpSettings(num_iterations=cfg.mpc.num_iterations)
+    ocp = make_ocp(model, info, cfg)
+    tick = make_tick(model, info, loop_cfg, dev, cascade)
+    ticks = loop_cfg.ticks_per_cycle
+    tau_max = torch.as_tensor(model.joint_effort, dtype=torch.float32,
+                              device=dev)
+    period = torch.tensor(1.0 / loop_cfg.mpc_freq, dtype=torch.float32,
+                          device=dev)
+    no_shift = torch.zeros((), dtype=torch.float32, device=dev)
+    warm = torch.zeros((), dtype=torch.bool, device=dev)     # cold = False
+    lag = int(loop_cfg.mrt_policy_lag)
+
+    def _check_policy_depth(carry):
+        """A carry built under another mrt_policy_lag would roll or
+        execute the wrong depth: fail loudly instead."""
+        if carry.policy is not None:
+            _check_depth(carry.policy, max(1, lag))
+
+    def solve(carry, target, ms, shift):
+        rbd = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)
+        x_obs = observation_from_rbd(model, info, rbd, carry.last_yaw)
+        policy = mpc_step(ocp, model, info, cfg, settings, carry.t, x_obs,
+                          target, ms, carry.W_warm, carry.X_warm, shift,
+                          warm)
+        return x_obs, policy
+
+    def cycle(carry: CycleCarry, target: TargetTrajectory, ms: ModeSchedule,
+              gains: WbcGains):
+        _check_policy_depth(carry)
+        # --- estimator + MPC solve (the reference's MPC thread) ---
+        x_obs, policy = solve(carry, target, ms, period)
+        # MRT buffer: the ticks consume a `lag`-period-old policy
+        if lag >= 1 and carry.policy is not None:
+            exec_policy = MpcPolicy(*[a[0] for a in carry.policy])
+            new_stack = MpcPolicy(*[torch.cat([s[1:], n[None]], dim=0)
+                                    for s, n in zip(carry.policy, policy)])
+        else:
+            exec_policy, new_stack = policy, carry.policy
+        new_yaw = x_obs[9]
+
+        # --- control ticks (the real-time loop), safety on the fresh cost
+        plant, input_last, t, safe = (carry.plant, carry.input_last,
+                                      carry.t, carry.safe)
+        for _ in range(ticks):
+            (plant, input_last, t, safe), (tau, forces, x_des) = tick(
+                plant, input_last, t, safe, exec_policy, new_yaw, gains,
+                tau_max, safety_cost=policy.cost)
+
+        # --- metrics ---
+        rbd_end = rbd_state_from_plant(model, plant.q, plant.v)
+        p_ref, q_ref = interpolate_ee_pose(target, t)
+        ee_pos = rbd_end[48:51]
+        ee_q = torch.cat([rbd_end[54:55], rbd_end[51:54]])
+        metrics = CycleMetrics(
+            ee_pos_err=torch.linalg.vector_norm(ee_pos - p_ref),
+            ee_ori_err=torch.linalg.vector_norm(quat_distance(ee_q, q_ref)),
+            base_height=plant.q[2], mpc_cost=policy.cost, safe=safe,
+            base_pose=plant.q[:6], ee_pos=ee_pos, ee_ref=p_ref,
+            feet_pos=K.contact_positions(model, plant.q),
+            forces=forces, torques=tau, x_des=x_des,
+            mpc_alpha=policy.alpha, mpc_defect=policy.defect)
+        new_carry = CycleCarry(plant=plant, W_warm=policy.W, X_warm=policy.X,
+                               input_last=input_last, last_yaw=new_yaw,
+                               t=t, safe=safe, policy=new_stack)
+        return new_carry, metrics
+
+    def warmup(carry: CycleCarry, target: TargetTrajectory,
+               ms: ModeSchedule):
+        """One MPC solve without advancing the plant (the reference's
+        starting() handshake, QMController.cpp:98-126)."""
+        _, policy = solve(carry, target, ms, no_shift)
+        return carry._replace(W_warm=policy.W, X_warm=policy.X,
+                              policy=_stack_policy(policy, max(1, lag)))
+
+    return cycle, warmup
+
+
+def _check_depth(policy: MpcPolicy, expected: int):
+    depth = policy.t_nodes.shape[0]
+    if depth != expected:
+        raise ValueError(f"carry.policy stack depth {depth} != "
+                         f"max(1, mrt_policy_lag)={expected}; rebuild the "
+                         f"carry for this LoopConfig (init_carry/warmup)")
+
+
 class ControlLoop:
-    """Host-side runner of the real-time tick loop."""
+    """Host-side runner: runs MPC cycles (or bare ticks), refreshes targets
+    and gaits between runs, collects metrics."""
 
     def __init__(self, model: RobotModel, info: C.CentroidalInfo,
                  cfg: QmConfig, loop_cfg: LoopConfig = LoopConfig(),
-                 gains: WbcGains = None, device="cuda", cascade=None):
+                 gains: WbcGains = None, device="cuda", cascade=None,
+                 settings: Optional[SqpSettings] = None):
         from .. import resolve_device
         self.device = resolve_device(device)
         self.model = model
@@ -156,6 +269,9 @@ class ControlLoop:
         self.tau_max = torch.as_tensor(model.joint_effort, dtype=torch.float32,
                                        device=self.device)
         self._tick = make_tick(model, info, loop_cfg, self.device, cascade)
+        self._cycle, self._warmup = make_cycle(
+            model, info, cfg, loop_cfg, settings, self.device, cascade)
+        self.cycle_timer = RepeatedTimer("control_cycle")
 
     def _lag(self) -> int:
         return max(1, int(self.loop_cfg.mrt_policy_lag))
@@ -165,7 +281,7 @@ class ControlLoop:
         state" policy (JAX loop.py:306-342)."""
         dev, f32 = self.device, torch.float32
         N = self.cfg.mpc.num_nodes
-        q0_t = torch.as_tensor(np.asarray(q0), dtype=f32, device=dev)
+        q0_t = torch.as_tensor(np.array(q0), dtype=f32, device=dev)
         w0 = C.weight_compensating_input(
             self.info, torch.ones(4, device=dev)).to(f32)
         rbd0 = rbd_state_from_plant(self.model, q0_t,
@@ -191,14 +307,45 @@ class ControlLoop:
             safe=torch.ones((), dtype=torch.bool, device=dev),
             policy=_stack_policy(hold, self._lag()))
 
+    def warmup(self, carry: CycleCarry, target: TargetTrajectory,
+               ms: ModeSchedule, num_solves: int = 20) -> CycleCarry:
+        """Converge the MPC warm start before releasing the control loop
+        (the reference's starting() initial-policy handshake)."""
+        for _ in range(num_solves):
+            carry = self._warmup(carry, target, ms)
+        return carry
+
+    def run(self, carry: CycleCarry, target: TargetTrajectory,
+            ms: ModeSchedule, num_cycles: int, log=None):
+        """Run num_cycles MPC periods; returns (carry, stacked metrics).
+        With a utils.viz.TrajectoryLog, every cycle's metrics are appended
+        to it (copied to the host once per call); each cycle's host wall
+        time (its dispatch: the device may still run) goes to
+        self.cycle_timer."""
+        out = []
+        for _ in range(num_cycles):
+            with self.cycle_timer:
+                carry, m = self._cycle(carry, target, ms, self.gains)
+            out.append(m)
+        metrics = CycleMetrics(*[torch.stack(xs) for xs in zip(*out)])
+        if log is not None:
+            # timestamps from carry.t alone: arithmetic with a metric
+            # would carry a NaN metric into the time axis
+            t_end = float(carry.t)
+            host = {k: v.detach().cpu().numpy()
+                    for k, v in metrics._asdict().items()}
+            for i in range(num_cycles):
+                log.append(t_end - (num_cycles - 1 - i)
+                           / self.loop_cfg.mpc_freq,
+                           **{k: v[i] for k, v in host.items()})
+        return carry, metrics
+
     def run_ticks(self, carry: CycleCarry, num_ticks: int, log=None):
-        """Run num_ticks control ticks executing carry.policy[0]; returns
+        """Run num_ticks control ticks executing carry.policy[0], with no
+        MPC stage; safety checks the executed policy's cost. Returns
         (carry', TickOutputs). If `log` (a list) is given, one dict of
         device tensors per tick is appended to it."""
-        depth = carry.policy.t_nodes.shape[0]
-        if depth != self._lag():
-            raise ValueError(f"carry.policy stack depth {depth} != "
-                             f"max(1, mrt_policy_lag)={self._lag()}")
+        _check_depth(carry.policy, self._lag())
         policy = MpcPolicy(*[a[0] for a in carry.policy])
         ticks_per_cycle = self.loop_cfg.ticks_per_cycle
         plant, input_last, t, safe = (carry.plant, carry.input_last,
@@ -211,7 +358,7 @@ class ControlLoop:
                 rbd = rbd_state_from_plant(self.model, plant.q, plant.v)
                 last_yaw = observation_from_rbd(self.model, self.info, rbd,
                                                 last_yaw)[9]
-            (plant, input_last, t, safe), (tau, fc) = self._tick(
+            (plant, input_last, t, safe), (tau, fc, _) = self._tick(
                 plant, input_last, t, safe, policy, last_yaw, self.gains,
                 self.tau_max)
             taus.append(tau)
