@@ -1,14 +1,17 @@
-"""Canonical experiments (port of qm_control_tpu/experiments.py). This
-slice ports config #1, `standing_ee_hold`: the EE pose held while standing
-or trotting in place, closed loop (MPC + WBC + plant). Each function
-builds the loop on `device` (default "cuda"), runs it and returns a
-metrics dict with its TrajectoryLog.
+"""Canonical experiments (port of qm_control_tpu/experiments.py). Ported:
+config #1, `standing_ee_hold` (the EE pose held while standing or
+trotting in place, closed loop: MPC + WBC + plant, returned with its
+TrajectoryLog), and config #5, `batched_rollouts` (a domain-randomized
+fleet of batched MPC solves). Each runs on `device` (default "cuda") and
+returns a metrics dict.
 """
 import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from . import resolve_device
 from .config import MpcConfig, QmConfig
 from .gaits.library import GAIT_LIBRARY, GaitSchedule
 from .models import centroidal as C
@@ -16,6 +19,7 @@ from .models import kinematics as K
 from .models import load_model
 from .models.spec import EE_FRAME, default_q
 from .ocp.reference import target_from_knots
+from .parallel.batch import BatchScenario, make_batched_mpc_step
 from .runtime.estimator import rbd_state_from_plant
 from .runtime.loop import ControlLoop, LoopConfig
 from .runtime.plant import PlantConfig, delay_steps_for
@@ -144,4 +148,46 @@ def standing_ee_hold(cfg: Optional[QmConfig] = None, gait: str = "trot",
         "reference_target_deg": 2.6,
         "cycle_timer": loop.cycle_timer.summary(),
         "log": log,
+    }
+
+
+def batched_rollouts(cfg: Optional[QmConfig] = None, batch: int = 64,
+                     num_steps: int = 5, seed: int = 0,
+                     device="cuda") -> dict:
+    """Config #5: domain-randomized scenario fleet — batched MPC solves
+    over randomized initial states (the gain-tuning workload). The
+    randomisation is the JAX package's, drawn from
+    np.random.default_rng(seed)."""
+    dev = resolve_device(device)
+    cfg = cfg or _default_cfg(horizon=0.5, dt=0.025)
+    model, info, q0, s = _standing_setup(cfg)
+    rng = np.random.default_rng(seed)
+    N = cfg.mpc.num_nodes
+    B = batch
+
+    def tile(a):
+        return a[None].expand(B, *a.shape).clone()
+
+    target = target_from_knots([0.0, 10.0], [s, s], device=dev)
+    ms = GaitSchedule(GAIT_LIBRARY["trot"]).mode_schedule(0.0, 10.0,
+                                                          device=dev)
+    x0 = torch.as_tensor(s[:30], dtype=torch.float32, device=dev)
+    x0[8] = 0.38
+    noise = rng.normal(0, 0.02, (B, 30)) * ([1] * 12 + [0.3] * 18)
+    b = BatchScenario(
+        t=torch.zeros(B, dtype=torch.float32, device=dev),
+        x=tile(x0) + torch.as_tensor(noise, dtype=torch.float32, device=dev),
+        target=type(target)(*map(tile, target)),
+        ms=type(ms)(*map(tile, ms)),
+        W_warm=torch.zeros(B, N, 30, dtype=torch.float32, device=dev),
+        X_warm=tile(x0[None].expand(N + 1, 30)))
+    step = make_batched_mpc_step(model, info, cfg)
+    for _ in range(num_steps):
+        b, policy = step(b)
+    costs = policy.cost.detach().cpu().numpy()
+    return {
+        "experiment": f"batched_rollouts[B={B}]",
+        "finite_fraction": float(np.isfinite(costs).mean()),
+        "cost_mean": float(np.nanmean(costs)),
+        "cost_p95": float(np.nanpercentile(costs, 95)),
     }

@@ -9,9 +9,11 @@ import torch
 
 from . import resolve_device
 from .gaits.gait import ModeSchedule
+from .kernels.cascade_exact import ExactWarm
 from .kernels.hoqp_fused import WARM_ROWS, warm_width
 from .mpc.mpc import MpcPolicy
 from .ocp.reference import TargetTrajectory
+from .parallel.batch import BatchScenario
 from .runtime.loop import CycleCarry
 from .runtime.plant import HybridCommand, PlantState
 
@@ -93,3 +95,29 @@ def policy_from_numpy(policy: dict, device="cuda") -> MpcPolicy:
     return MpcPolicy(**{k: _t(policy[k], dev, torch.int32 if k == "modes"
                               else torch.float32)
                         for k in MpcPolicy._fields})
+
+
+def exact_warm_from_numpy(leaves, device="cuda") -> ExactWarm:
+    """ExactWarm from the nine numpy leaves of a JAX ExactWarm, in field
+    order (valid, z0, v0, lam_a, lam_b, z1, lam1, z2, lam2); any leading
+    batch axes kept."""
+    dev = resolve_device(device)
+    return ExactWarm(*[_t(a, dev) for a in leaves])
+
+
+def exact_warm_to_numpy(warm: ExactWarm) -> list:
+    """The nine leaves of an ExactWarm as numpy, in field order."""
+    return [a.detach().cpu().numpy() for a in warm]
+
+
+def batch_scenario_from_numpy(t, x, target_times, target_states,
+                              event_times, modes, W_warm, X_warm,
+                              device="cuda") -> BatchScenario:
+    """BatchScenario from the numpy leaves of a JAX BatchScenario (each
+    with its leading batch axis)."""
+    dev = resolve_device(device)
+    return BatchScenario(
+        t=_t(t, dev), x=_t(x, dev),
+        target=TargetTrajectory(_t(target_times, dev), _t(target_states, dev)),
+        ms=ModeSchedule(_t(event_times, dev), _t(modes, dev, torch.int32)),
+        W_warm=_t(W_warm, dev), X_warm=_t(X_warm, dev))

@@ -14,8 +14,18 @@ Three pieces, as for every kernel of the port:
 * the CUDA kernel `csrc/hoqp_fused.cu` (one thread block per cascade,
   every matrix in shared memory), built with nvcc for sm_90a on first use
   and bound with ctypes.
-* `fused_hoqp` — the wrapper: CPU tensors run `cascade_plain`; CUDA
-  tensors launch the kernel (and count the launch) or raise.
+* the custom op `torch.ops.qm_control_tpu_torch.hoqp_fused`, on operands
+  with a leading batch B: its CUDA implementation launches the kernel once
+  with grid = B (one block per cascade; the blocks do not interact, so a
+  launch of B equals B launches of one bit for bit), its CPU
+  implementation runs `cascade_plain` per cascade. Its vmap rule folds the
+  batch of `torch.func.vmap` into B, so a vmapped caller (the tick, the
+  closed-loop cycle) reaches the card as one grid-B launch.
+* `fused_hoqp` — the single-cascade wrapper (B = 1 through the op): CPU
+  tensors run `cascade_plain`; CUDA tensors launch the kernel (and count
+  the launch) or raise. `fused_hoqp_batched` takes tasks with a leading B:
+  one grid-B launch on CUDA tensors, `vmap(cascade_exact)` on CPU tensors
+  (the JAX package's batch cascade).
 
 Warm layout: a (9, W) buffer, W = max(nv, 36) (56 on the WBC stack), rows
 in the JAX order — 0: validity, 1: z0, 2: v0, 3: lam_a, 4: lam_b, 5: z1,
@@ -29,6 +39,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from typing import Optional
 
 import torch
 
@@ -41,9 +52,11 @@ _GATE_TOL = 1e-6
 _MASK_LIMIT = 5e5   # rows with f >= this are structurally inactive
 WARM_ROWS = 9
 
-# launches of the CUDA kernel since the last reset (the plain version on
-# CPU tensors does not count)
+# launches of the CUDA kernel since the last reset, and the cascades they
+# solved (a launch with grid = B adds B); the plain version on CPU tensors
+# counts in neither
 launch_count = 0
+block_count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -416,25 +429,29 @@ def _operand(t, shape, dev):
     return t.contiguous()
 
 
-def _launch(t0: Task, t1: Task, t2: Task, qp_iters, warm):
-    global launch_count
-    dev = t0.A.device
+def _launch(A0, b0, D, f, A1, b1, A2, b2, warm, qp_iters):
+    """One launch of K1 with grid = B over operands with a leading B."""
+    global launch_count, block_count
+    dev = A0.device
     nx = NUM_DECISION_VARS
-    ma0, nv, ma1, ma2 = (t0.A.shape[0], t0.D.shape[0], t1.A.shape[0],
-                         t2.A.shape[0])
+    if A0.dim() != 3:
+        raise ValueError(f"K1 takes operands with a leading batch, got A0 "
+                         f"{tuple(A0.shape)}")
+    B, ma0, nv, ma1, ma2 = (A0.shape[0], A0.shape[1], D.shape[1],
+                            A1.shape[1], A2.shape[1])
     if not (1 <= ma0 <= _MAX_ROWS and 1 <= ma1 <= _MAX_ROWS
-            and 1 <= ma2 <= _MAX_ROWS and 1 <= nv <= _MAX_NV):
+            and 1 <= ma2 <= _MAX_ROWS and 1 <= nv <= _MAX_NV and B >= 1):
         raise ValueError(f"K1 limits: task rows <= {_MAX_ROWS}, "
-                         f"inequalities <= {_MAX_NV}; got {ma0}/{ma1}/{ma2}, "
-                         f"{nv}")
+                         f"inequalities <= {_MAX_NV}, batch >= 1; got "
+                         f"{ma0}/{ma1}/{ma2}, {nv}, batch {B}")
     W = warm_width(nv)
-    ops = [_operand(t0.A, (ma0, nx), dev), _operand(t0.b, (ma0,), dev),
-           _operand(t0.D, (nv, nx), dev), _operand(t0.f, (nv,), dev),
-           _operand(t1.A, (ma1, nx), dev), _operand(t1.b, (ma1,), dev),
-           _operand(t2.A, (ma2, nx), dev), _operand(t2.b, (ma2,), dev)]
-    w_in = None if warm is None else _operand(warm, (WARM_ROWS, W), dev)
-    x = torch.empty(nx, dtype=torch.float32, device=dev)
-    w_out = torch.empty(WARM_ROWS, W, dtype=torch.float32, device=dev)
+    ops = [_operand(A0, (B, ma0, nx), dev), _operand(b0, (B, ma0), dev),
+           _operand(D, (B, nv, nx), dev), _operand(f, (B, nv), dev),
+           _operand(A1, (B, ma1, nx), dev), _operand(b1, (B, ma1), dev),
+           _operand(A2, (B, ma2, nx), dev), _operand(b2, (B, ma2), dev)]
+    w_in = None if warm is None else _operand(warm, (B, WARM_ROWS, W), dev)
+    x = torch.empty(B, nx, dtype=torch.float32, device=dev)
+    w_out = torch.empty(B, WARM_ROWS, W, dtype=torch.float32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -442,11 +459,75 @@ def _launch(t0: Task, t1: Task, t2: Task, qp_iters, warm):
             *[o.data_ptr() for o in ops],
             None if w_in is None else w_in.data_ptr(),
             x.data_ptr(), w_out.data_ptr(), ma0, nv, ma1, ma2,
-            int(qp_iters), 1, stream)
+            int(qp_iters), B, stream)
     if err != 0:
         raise RuntimeError(f"hoqp_fused kernel launch failed: cudaError {err}")
     launch_count += 1
+    block_count += B
     return x, w_out
+
+
+# ---------------------------------------------------------------------------
+# the custom op: K1 on a batch, and its vmap rule
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("qm_control_tpu_torch::hoqp_fused", mutates_args=(),
+                         device_types="cuda")
+def hoqp_fused_op(A0: torch.Tensor, b0: torch.Tensor, D: torch.Tensor,
+                  f: torch.Tensor, A1: torch.Tensor, b1: torch.Tensor,
+                  A2: torch.Tensor, b2: torch.Tensor,
+                  warm: Optional[torch.Tensor],
+                  qp_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """B cascades, operands with a leading B (A0 (B, ma0, 36), b0 (B, ma0),
+    D (B, nv, 36), f (B, nv), A1, b1, A2, b2; warm (B, 9, W) or None) ->
+    (x (B, 36), warm_out (B, 9, W)). CUDA: one K1 launch, grid = B."""
+    return _launch(A0, b0, D, f, A1, b1, A2, b2, warm, qp_iters)
+
+
+@hoqp_fused_op.register_kernel("cpu")
+def _hoqp_fused_cpu(A0, b0, D, f, A1, b1, A2, b2, warm, qp_iters):
+    empty = (A1.new_zeros((0, NUM_DECISION_VARS)), A1.new_zeros(0))
+    xs, ws = [], []
+    for i in range(A0.shape[0]):
+        x, w = cascade_plain(Task(A0[i], b0[i], D[i], f[i]),
+                             Task(A1[i], b1[i], *empty),
+                             Task(A2[i], b2[i], *empty), qp_iters,
+                             warm=None if warm is None else warm[i],
+                             return_warm=True)
+        xs.append(x)
+        ws.append(w)
+    return torch.stack(xs), torch.stack(ws)
+
+
+def _hoqp_fused_vmap(info, in_dims, *args):
+    """vmap over the op: move each batched dim to the front (expand the
+    unbatched operands), fold it into the op's own batch, call the op once
+    (on CUDA: one launch with grid = vmap size x op batch) and unfold."""
+    *operands, qp_iters = args
+    n = info.batch_size
+
+    def front(t, d):
+        if t is None:
+            return None
+        t = t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+        return t.reshape(-1, *t.shape[2:])
+
+    x, w = hoqp_fused_op(*[front(t, d) for t, d in zip(operands, in_dims)],
+                         qp_iters)
+    return ((x.reshape(n, -1, *x.shape[1:]), w.reshape(n, -1, *w.shape[1:])),
+            (0, 0))
+
+
+hoqp_fused_op.register_vmap(_hoqp_fused_vmap)
+
+
+def _batched_operands(t0: Task, t1: Task, t2: Task):
+    return (t0.A, t0.b, t0.D, t0.f, t1.A, t1.b, t2.A, t2.b)
+
+
+def _device_ok(dev):
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"fused_hoqp: no kernel for device {dev}")
 
 
 def fused_hoqp(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
@@ -454,13 +535,42 @@ def fused_hoqp(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
     """Solve the 3-level cascade; returns the (36,) decision vector, or
     (x, warm_out) with return_warm=True. CUDA tensors go through the K1
     kernel (one launch, counted in `launch_count`); CPU tensors through
-    `cascade_plain`. Any other device raises."""
+    `cascade_plain`. Any other device raises. Under `torch.func.vmap` the
+    op's vmap rule makes it one launch for the whole batch."""
     _check_tasks(t0, t1, t2)
+    _device_ok(t0.A.device)
+    x, w_out = hoqp_fused_op(
+        *[a[None] for a in _batched_operands(t0, t1, t2)],
+        None if warm is None else warm[None], int(qp_iters))
+    return (x[0], w_out[0]) if return_warm else x[0]
+
+
+def fused_hoqp_batched(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
+                       warm=None, return_warm: bool = False):
+    """Batched cascade: tasks carry a leading batch dim B; returns (B, 36)
+    decision vectors, or (x, warm_out (B, 9, W)). CUDA tensors: one K1
+    launch with grid = B. CPU tensors: `vmap(cascade_exact)`, the JAX
+    package's batch path (qm_control_tpu/kernels/hoqp_fused.py:655-686)."""
+    for t in (t1, t2):
+        if t.D.shape[-2] != 0:
+            raise ValueError("fused cascade supports inequalities at level "
+                             "0 only")
     dev = t0.A.device
-    if dev.type == "cpu":
-        return cascade_plain(t0, t1, t2, qp_iters, warm=warm,
-                             return_warm=return_warm)
-    if dev.type != "cuda":
-        raise RuntimeError(f"fused_hoqp: no kernel for device {dev}")
-    x, w_out = _launch(t0, t1, t2, qp_iters, warm)
-    return (x, w_out) if return_warm else x
+    _device_ok(dev)
+    if dev.type == "cuda":
+        x, w_out = hoqp_fused_op(*_batched_operands(t0, t1, t2), warm,
+                                 int(qp_iters))
+        return (x, w_out) if return_warm else x
+    from torch.func import vmap
+
+    from .cascade_exact import cascade_exact, warm_from_buffer, warm_to_buffer
+    nv = t0.D.shape[-2]
+
+    def one(a, b, c, w):
+        return cascade_exact(a, b, c, qp_iters, warm=w, return_warm=True)
+
+    if warm is None:
+        x, w_ex = vmap(lambda a, b, c: one(a, b, c, None))(t0, t1, t2)
+    else:
+        x, w_ex = vmap(one)(t0, t1, t2, warm_from_buffer(warm, nv))
+    return (x, warm_to_buffer(w_ex)) if return_warm else x

@@ -50,7 +50,11 @@ def _segment(times, t):
     (OCS2 LinearInterpolation::timeSegment: alpha weighs the LEFT knot,
     clamped outside the range). index and alpha have t's shape."""
     t = torch.as_tensor(t, dtype=times.dtype, device=times.device)
-    idx = torch.searchsorted(times, t.reshape(-1), right=True) - 1
+    # searchsorted(times, t, right=True) as a count of knots <= t: under
+    # vmap the batched value tensor reaches searchsorted's kernel
+    # permuted (non-contiguous) whatever its logical layout, and the
+    # kernel then warns and copies on every call
+    idx = (times <= t.reshape(-1, 1)).sum(-1) - 1
     idx = torch.clamp(idx, 0, times.shape[0] - 2)
     t0 = times.index_select(0, idx).reshape(t.shape)
     t1 = times.index_select(0, idx + 1).reshape(t.shape)

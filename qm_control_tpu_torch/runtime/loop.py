@@ -19,7 +19,7 @@ mrt_policy_lag=1: the STANCE "hold current state" policy `init_carry`
 seeds) and checks safety against that executed policy's cost, refreshing
 the yaw-unwrap reference every MPC period.
 """
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -48,6 +48,10 @@ class LoopConfig(NamedTuple):
     leg_kd: float = 3.0                # QMController.cpp:182
     leg_command_start_time: float = 0.0
     plant: PlantConfig = PlantConfig()
+    fused_wbc: Union[bool, str, None] = None   # the WBC cascade. None,
+    # True: K1 (the CUDA kernel on the card, its plain version on CPU
+    # tensors); "xla": kernels.cascade_exact (plain PyTorch); False: the
+    # pivoted cascade, not ported (raises)
     mpc_wrench_feedthrough: bool = False  # the plant's measured EE wrench
     # in the MPC dynamics (not ported: raises)
     mrt_policy_lag: int = 1   # ticks consume a policy this many MPC
@@ -109,8 +113,10 @@ def make_tick(model: RobotModel, info: C.CentroidalInfo,
     safety_cost=None) -> ((plant, input_last, t, safe), (torques, forces,
     x_des)): one control tick executing `policy`; safety checks
     `safety_cost` (default: policy.cost). cascade: see
-    wbc.hierarchical_wbc_update (None = the K1 kernel wrapper)."""
+    wbc.hierarchical_wbc_update (None = the cascade loop_cfg.fused_wbc
+    names)."""
     plant_step = make_plant_step(model, loop_cfg.plant)
+    fused = True if loop_cfg.fused_wbc is None else loop_cfg.fused_wbc
     substeps = loop_cfg.substeps_per_tick
     tick_dt = 1.0 / loop_cfg.control_freq
     period = torch.tensor(tick_dt, dtype=torch.float32, device=device)
@@ -129,7 +135,7 @@ def make_tick(model: RobotModel, info: C.CentroidalInfo,
             model, info, gains, tau_max, x_des, u_des, input_last,
             q_meas, v_meas, flags, period, t,
             ee_wrench=plant.ee_wrench,     # measured-wrench feedthrough
-            fused_cascade=True, cascade=cascade)
+            fused_cascade=fused, cascade=cascade)
         # hybrid commands (QMController::updateControlLaw :177-190)
         leg_on = (t >= loop_cfg.leg_command_start_time).to(torch.float32)
         kp = gains.kp_arm_wbc * arm_rows

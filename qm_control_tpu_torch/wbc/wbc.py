@@ -9,10 +9,12 @@ reference qm_wbc/src/HierarchicalWbc.cpp:18-44):
   T2 (slack):  contact-force tracking + base linear
 
 The cascade runs through K1 (kernels.hoqp_fused.fused_hoqp): the CUDA
-kernel on the card, its plain version on CPU tensors. The JAX package's
-other cascade paths (`fused_cascade=False`: wbc/hoqp.py + wbc/qp.py, and
-`"xla"`: kernels/cascade_exact.py) and `hierarchical_mpc_wbc_update` are
-still to port (ROADMAP); asking for them raises.
+kernel on the card, its plain version on CPU tensors; under
+`torch.func.vmap` the whole batch is one K1 launch. `fused_cascade="xla"`
+runs the exact-shape cascade in plain PyTorch (kernels/cascade_exact.py),
+the JAX package's batch path. The pivoted cascade (`fused_cascade=False`:
+wbc/hoqp.py + wbc/qp.py) and `hierarchical_mpc_wbc_update` are still to
+port (ROADMAP); asking for them raises.
 """
 from typing import NamedTuple
 
@@ -82,21 +84,24 @@ def hierarchical_wbc_update(model: RobotModel, info: C.CentroidalInfo,
                             state_des, input_des, input_last,
                             q, v, contact_flags, period, time,
                             ee_wrench=None,
-                            fused_cascade: bool = True,
+                            fused_cascade=True,
                             cascade=None) -> WbcResult:
-    """One WBC solve (reference HierarchicalWbc::update :18-44) through
-    K1. ee_wrench: measured world wrench [f(3); tau(3)] at the arm EE,
-    entering the EoM, torque limits and torque recovery. cascade: the
-    solver of the three levels, kernels.hoqp_fused.fused_hoqp by default;
+    """One WBC solve (reference HierarchicalWbc::update :18-44). ee_wrench:
+    measured world wrench [f(3); tau(3)] at the arm EE, entering the EoM,
+    torque limits and torque recovery. fused_cascade: True (K1,
+    kernels.hoqp_fused.fused_hoqp) or "xla" (kernels.cascade_exact);
+    False (the pivoted cascade) is not ported and raises. cascade: an
+    explicit solver of the three levels, overriding fused_cascade;
     chip_smoke.py passes cascade_plain to hold the main path on the card
     against the plain version."""
-    if fused_cascade is not True:
+    if fused_cascade is not True and fused_cascade != "xla":
         raise NotImplementedError(
-            f"fused_cascade={fused_cascade!r}: only the fused K1 cascade is "
-            "ported; the pivoted XLA cascade (wbc/hoqp.py, wbc/qp.py) and "
-            "the exact-shape batch cascade (kernels/cascade_exact.py) are "
-            "ROADMAP items still to port")
-    if cascade is None:
+            f"fused_cascade={fused_cascade!r}: the pivoted XLA cascade "
+            "(wbc/hoqp.py, wbc/qp.py) is a ROADMAP item still to port; use "
+            "True (K1) or 'xla' (kernels/cascade_exact.py)")
+    if cascade is None and fused_cascade == "xla":
+        from ..kernels.cascade_exact import cascade_exact as cascade
+    elif cascade is None:
         from ..kernels.hoqp_fused import fused_hoqp as cascade
     m, (t0, t1, t2) = wbc_stack(model, info, gains, tau_max, state_des,
                                 input_des, input_last, q, v, contact_flags,

@@ -118,11 +118,24 @@ def test_hierarchical_wbc_wrapper_cpu(setup):
 
 
 def test_unported_cascades_raise(setup):
+    """fused_cascade=False (the pivoted cascade, wbc/hoqp.py + wbc/qp.py)
+    is not ported and raises, from the update and from a loop built with
+    LoopConfig(fused_wbc=False); "xla" is ported (kernels/cascade_exact.py)
+    and solves the same stack as cascade_exact."""
+    from qm_control_tpu_torch.config import QmConfig as TQmConfig
+    from qm_control_tpu_torch.kernels.cascade_exact import cascade_exact
+    from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
     _, tm, _, ti, x, tgains, _ = setup
     tau_max = torch.as_tensor(tm.joint_effort, dtype=torch.float32)
     args = [torch.as_tensor(np.asarray(a))
             for a in _args(x, np.ones(4, np.float32),
                            np.zeros(24, np.float32))]
-    for mode in (False, "xla"):
-        with pytest.raises(NotImplementedError):
-            t_update(tm, ti, tgains, tau_max, *args, fused_cascade=mode)
+    with pytest.raises(NotImplementedError):
+        t_update(tm, ti, tgains, tau_max, *args, fused_cascade=False)
+    res = t_update(tm, ti, tgains, tau_max, *args, fused_cascade="xla")
+    _, stack = wbc_stack(tm, ti, tgains, tau_max, *args)
+    assert torch.equal(res.x_opt, cascade_exact(*stack))
+    loop = ControlLoop(tm, ti, TQmConfig(), LoopConfig(fused_wbc=False),
+                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        loop.run_ticks(loop.init_carry(np.asarray(x[6:30])), 1)
