@@ -32,8 +32,25 @@ of them passed; each prints its wall time):
      which the JAX package's own run of the same call holds
      (docs/hold_reference_jax.py). It runs in a child process of this
      script, beside phases 3-4a (the host is the bottleneck of both);
-  5. times with CUDA events after warm-up: ms per tick, K1 ms per launch,
-     the plain version's ms, and the bound of K1's work on an H100; a
+  4c. the command-driven experiments at full width, each in a child
+     process beside phases 3-4a and 4b (two at a time on a host with
+     fewer than 8 cores), each with the K1 count reset before and read
+     after and its control ticks counted at the loop:
+     traverse_ee_hold(gait="trot", speed=-0.05, max_time=1.0) then one
+     ControlLoop.escape; ee_tracking(duration=1.3); disturbance_rejection
+     at 25 N held 1.0 s with the MPC's wrench feedthrough on and off. One
+     K1 launch per tick in every run; traverse finite and safe, its EE
+     errors within the JAX package's run of the call (the larger of 25 %
+     and that run's own spread under 1e-7 dust on q0, docs/experiments_
+     reference_jax.py; the JAX run itself lands above the reference's
+     3.5 mm, so that is printed) and within 2.6 deg; the escape's costs
+     finite and no K1 launch in it; ee_tracking's
+     EE error and the feedthrough's excursion and `recovered` within the
+     JAX runs by the same rule; the excursion with the feedthrough below
+     the one without, and at most 120 mm;
+  5. times with CUDA events after warm-up: ms per tick, K1 ms per launch
+     (cold, and warm from a warm buffer), the plain version's ms, and the
+     bound of K1's work on an H100; a
      torch.profiler view of one MPC period of ticks; the host time of each
      tick layer; the MPC solve (warm-started, N = 67, median of 9, and
      once with unrolled_ops=False), ms per MPC cycle (1 solve + 10 ticks),
@@ -65,12 +82,14 @@ of them passed; each prints its wall time):
   8. experiments.batched_rollouts at N = 67, batch 256, 5 steps:
      finite_fraction 1.0.
 The profiles of phases 5 and 6 run last: the profiler leaves tracing on
-and slows what runs after it (phase 5 prints the tick after it).
+and slows what runs after it (phase 5 prints the tick after it). A
+[kernels] line lists K1's launches on every path.
 Without a CUDA device it exits non-zero before printing any result.
 
     python3 chip_smoke.py --mpc-batch B
 
-runs phase 6 alone at B scenarios (the B = 1024 and 4096 probes).
+runs phase 6 alone at B scenarios (the B = 1024 and 4096 probes);
+`--main-path` and `--experiment NAME` are phases 4b and 4c alone.
 """
 import json
 import os
@@ -94,6 +113,40 @@ HOLD_TICKS = (50 + 25) * 10         # settling + trot periods x 10 ticks
 JAX_HOLD = dict(ee_pos_err_max_mm=2.5492957793176174,
                 ee_ori_err_max_deg=0.05422760989949518)
 HOLD_GATES = dict(ee_pos_err_max_mm=3.5, ee_ori_err_max_deg=2.6)
+# phase 4c: the command-driven experiments at full width, cut in depth
+# (5 warm-up solves; the traverse to 1.0 s, when its ramped command has
+# walked one chunk; the disturbance held 1.0 s: of the holds tried, 0.5,
+# 1.0 and 1.5 s, the shortest at which the JAX package's run separates the
+# feedthrough from the WBC alone, PERF.md section 4)
+EXPERIMENTS = {
+    "traverse": ("traverse_ee_hold",
+                 dict(gait="trot", speed=-0.05, max_time=1.0, warmup=5)),
+    "tracking": ("ee_tracking", dict(duration=1.3, warmup=5)),
+    "wrench_on": ("disturbance_rejection",
+                  dict(ee_force=25.0, settle=0.2, hold=1.0, release=0.3,
+                       warmup=5, settle_band_mm=25.0,
+                       mpc_wrench_feedthrough=True)),
+    "wrench_off": ("disturbance_rejection",
+                   dict(ee_force=25.0, settle=0.2, hold=1.0, release=0.3,
+                        warmup=5, settle_band_mm=25.0,
+                        mpc_wrench_feedthrough=False)),
+}
+# the JAX package's own runs of these calls on the CPU, (value, spread):
+# the spread is the largest move of the value under 1e-7 relative dust on
+# q0 over three draws (docs/experiments_reference_jax.py)
+JAX_EXPERIMENTS = {
+    "traverse": dict(ee_pos_err_max_mm=(4.714813083410263,
+                                        0.07854867726564407),
+                     ee_ori_err_max_deg=(0.34950448840882836,
+                                         0.008399905379499195)),
+    "tracking": dict(ee_pos_err_max_mm=(22.6923817515423,
+                                        0.03601964115420486)),
+    "wrench_on": dict(ee_excursion_max_mm=(15.327118337154388,
+                                           0.18096249550580978),
+                      recovered=True),
+    "wrench_off": dict(ee_excursion_max_mm=(31.657513231039047, None)),
+}
+CHILD_TIMEOUT_S = 780       # phases 4b-4c, counted from the end of 4a
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 256                 # phases 3b, 6-8: bench.py's batch
 K1_BATCHES = (1, 132, 256, 1024, 4096)   # phase 3b's timed grid sizes
@@ -314,6 +367,122 @@ def main_path():
                logged_cycles=int(len(arrays["t"])))
     print(json.dumps({"main_path": res}))
     return 0
+
+
+def experiment_child(name):
+    """Phase 4c, run as `chip_smoke.py --experiment NAME` in a child
+    process: one call of EXPERIMENTS[name] on the card with the K1 launch
+    count reset just before and read just after, and the control ticks it
+    ran counted at the loop (cycles the experiment asked for x ticks per
+    cycle). The traverse child then runs ControlLoop.escape on a carry
+    after 5 warm-up solves. Prints one JSON line {"experiment": name,
+    "result": ...}."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from qm_control_tpu_torch import experiments as E
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.runtime.loop import ControlLoop
+
+    class Counted(ControlLoop):
+        ticks = 0
+
+        def run(self, carry, target, ms, num_cycles, log=None):
+            Counted.ticks += num_cycles * self.loop_cfg.ticks_per_cycle
+            return super().run(carry, target, ms, num_cycles, log=log)
+
+    E.ControlLoop = Counted
+    fn, kw = EXPERIMENTS[name]
+    K.build()                      # the parent built it: found on disk
+    torch.cuda.synchronize()
+    K.launch_count = 0
+    t0 = time.perf_counter()
+    res = getattr(E, fn)(**kw, device="cuda")
+    torch.cuda.synchronize()
+    res.update(launches=K.launch_count, ticks=Counted.ticks,
+               wall_s=time.perf_counter() - t0)
+    log = res.pop("log", None)
+    res.pop("cycle_timer", None)
+    if log is not None:
+        res["finite"] = bool(all(np.isfinite(v).all()
+                                 for v in log.as_arrays().values()
+                                 if v.dtype.kind == "f"))
+    if name == "traverse":
+        # ControlLoop.escape in the traverse's loop configuration, on the
+        # hold problem (stance, trot from 0.5 s) after 5 warm-up solves:
+        # two deep solves of 12 SQP iterations, no tick
+        from qm_control_tpu_torch.experiments import (_default_cfg,
+                                                      _loop_cfg,
+                                                      _standing_setup)
+        model, info, q0, _ = _standing_setup(None)
+        loop = ControlLoop(model, info, _default_cfg(), _loop_cfg(1000.0),
+                           device="cuda")
+        target, ms = _hold_problem(torch.device("cuda"))
+        carry = loop.warmup(loop.init_carry(q0), target, ms, num_solves=5)
+        K.launch_count = 0
+        t0 = time.perf_counter()
+        _, escaped = loop.escape(carry, target, ms)
+        costs = [float(c) for c in loop.escape_costs]
+        res["escape"] = dict(escaped=escaped, cold_cost=costs[0],
+                             warm_cost=costs[1], launches=K.launch_count,
+                             wall_s=time.perf_counter() - t0)
+    print(json.dumps({"experiment": name, "result": res}))
+    return 0
+
+
+class _Children:
+    """Child processes of this script (`args` each), run in a background
+    thread at most `width` at a time, each with its output in a temporary
+    file and its wall time kept; `stop` kills whatever still runs."""
+
+    def __init__(self, jobs, width):
+        import tempfile
+        import threading
+        self.jobs = {name: dict(args=args, out=tempfile.TemporaryFile(
+            mode="w+"), proc=None, wall=None) for name, args in jobs}
+        self._gate = threading.Semaphore(width)
+        self._lock = threading.Lock()
+        self._stopped = False
+        self._threads = [threading.Thread(target=self._one, args=(n,),
+                                          daemon=True) for n in self.jobs]
+        for th in self._threads:
+            th.start()
+
+    def _one(self, name):
+        job = self.jobs[name]
+        with self._gate:
+            with self._lock:
+                if self._stopped:
+                    return
+                t0 = time.perf_counter()
+                job["proc"] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     *job["args"]], cwd=ROOT, stdout=job["out"],
+                    stderr=subprocess.STDOUT, text=True)
+            job["proc"].wait()
+            job["wall"] = time.perf_counter() - t0
+
+    def join(self, timeout):
+        """{name: (exit code, output lines, wall s)} once all have ended."""
+        end = time.perf_counter() + timeout
+        for th in self._threads:
+            th.join(max(0.0, end - time.perf_counter()))
+        out = {}
+        for name, job in self.jobs.items():
+            if job["wall"] is None:
+                raise AssertionError(f"child {name} did not end in time")
+            job["out"].seek(0)
+            out[name] = (job["proc"].returncode,
+                         job["out"].read().splitlines(), job["wall"])
+        return out
+
+    def stop(self):
+        with self._lock:
+            self._stopped = True
+        for job in self.jobs.values():
+            if job["proc"] is not None and job["proc"].poll() is None:
+                job["proc"].kill()
+                job["proc"].wait()
 
 
 def _spread(B):
@@ -674,6 +843,78 @@ def batched_cycle(model, info, dev):
     return launches, blocks, cycle_ms
 
 
+def _within_jax(name, key, value):
+    """|value - JAX's| within the larger of 25 % of JAX's value and the JAX
+    run's own spread under 1e-7 dust on q0 (JAX_EXPERIMENTS)."""
+    ref, spread = JAX_EXPERIMENTS[name][key]
+    band = max(0.25 * abs(ref), spread)
+    ok = abs(value - ref) <= band
+    print(f"[4c {name}] {key} {value:.4f} vs the JAX run's {ref:.4f} "
+          f"(band {band:.4f}: 25 % or its dust spread {spread:.4f}): "
+          f"{'in' if ok else 'OUT'}")
+    return ok
+
+
+def _check_experiments(res):
+    """Phase 4c's gates on the children's results {name: dict}; returns
+    the K1 launches of each run."""
+    import math
+
+    def finite(r):
+        return all(isinstance(v, (bool, str)) or (
+            v is not None and math.isfinite(v)) for v in r.values()
+            if not isinstance(v, dict))
+    for name, r in res.items():
+        fn, kw = EXPERIMENTS[name]
+        shown = {k: (round(v, 4) if isinstance(v, float) else v)
+                 for k, v in r.items()}
+        args = ", ".join(f"{k}={v!r}" for k, v in kw.items())
+        print(f"[4c {name}] {fn}({args}, device='cuda'): {shown}")
+        if not (r["ticks"] > 0 and r["launches"] == r["ticks"]):
+            raise AssertionError(f"4c {name}: K1 launched {r['launches']} "
+                                 f"times in {r['ticks']} ticks")
+    tr, on, off = res["traverse"], res["wrench_on"], res["wrench_off"]
+    if not (finite(tr) and tr["finite"] and tr["safe"]):
+        raise AssertionError("4c traverse is not finite or not safe")
+    if not finite(on):
+        raise AssertionError("4c wrench_on is not finite")
+    if not (finite(res["tracking"]) and res["tracking"]["safe"]):
+        raise AssertionError("4c tracking is not finite or not safe")
+    # the reference's 3.5 mm is not a gate at this depth: the JAX
+    # package's own run of the call lands above it (PERF.md section 6)
+    ok = _within_jax("traverse", "ee_pos_err_max_mm",
+                     tr["ee_pos_err_max_mm"])
+    ok &= _within_jax("traverse", "ee_ori_err_max_deg",
+                      tr["ee_ori_err_max_deg"])
+    ok &= tr["ee_ori_err_max_deg"] <= 2.6
+    esc = tr["escape"]
+    print(f"[4c escape] escaped {esc['escaped']}, deep solves' costs cold "
+          f"{esc['cold_cost']:.6f} / warm {esc['warm_cost']:.6f}, K1 "
+          f"launches {esc['launches']}, {esc['wall_s']:.1f} s")
+    ok &= (math.isfinite(esc["cold_cost"]) and math.isfinite(esc["warm_cost"])
+           and esc["launches"] == 0)
+    ok &= _within_jax("tracking", "ee_pos_err_max_mm",
+                      res["tracking"]["ee_pos_err_max_mm"])
+    # OFF may collapse to non-finite values under the load (the JAX
+    # package's longer runs do); a non-finite excursion is unbounded
+    off_exc = off["ee_excursion_max_mm"]
+    off_exc = off_exc if math.isfinite(off_exc) else math.inf
+    jax_off = JAX_EXPERIMENTS["wrench_off"]["ee_excursion_max_mm"][0]
+    print(f"[4c wrench] excursion ON {on['ee_excursion_max_mm']:.3f} mm "
+          f"(bound 120), OFF {off['ee_excursion_max_mm']:.3f} mm (the JAX "
+          f"run's {jax_off:.3f} mm); recovered ON {on['recovered']} (JAX "
+          f"{JAX_EXPERIMENTS['wrench_on']['recovered']}), OFF "
+          f"{off['recovered']}")
+    ok &= (on["ee_excursion_max_mm"] < off_exc
+           and on["ee_excursion_max_mm"] <= 120.0
+           and on["recovered"] == JAX_EXPERIMENTS["wrench_on"]["recovered"])
+    ok &= _within_jax("wrench_on", "ee_excursion_max_mm",
+                      on["ee_excursion_max_mm"])
+    if not ok:
+        raise AssertionError("phase 4c: an experiment misses its gate")
+    return {name: r["launches"] for name, r in res.items()}
+
+
 class _Clock:
     """Prints each phase's wall time."""
 
@@ -693,8 +934,6 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import tempfile
-
     from qm_control_tpu_torch.kernels import hoqp_fused as K
 
     clock = _Clock()
@@ -703,7 +942,8 @@ def main():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}")
+          f"count {torch.cuda.device_count()}; host CPU cores "
+          f"{os.cpu_count()}")
 
     # ---- 2. build K1 -------------------------------------------------
     path = K.build()
@@ -715,21 +955,25 @@ def main():
     print(f"[build] dynamic shared memory per block: {K.smem_bytes()} B")
     clock.done("1-2")
 
-    # ---- 4b runs in a child process (main_path) beside phases 3-4a -----
-    with tempfile.TemporaryFile(mode="w+") as child_out:
-        child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                  "--main-path"], cwd=ROOT, stdout=child_out,
-                                 stderr=subprocess.STDOUT, text=True)
-        try:
-            return _phases(smi, clock, child, child_out)
-        finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+    # ---- 4b and 4c run in child processes beside phases 3-4a ------------
+    # (the host is the bottleneck of every one of them); two 4c children
+    # at a time on a host with few cores
+    cores = os.cpu_count() or 1
+    jobs = [("4b", ["--main-path"])] + [
+        (f"4c-{n}", ["--experiment", n]) for n in EXPERIMENTS]
+    width = len(jobs) if cores >= 8 else 3
+    print(f"[host] {cores} CPU cores: {len(jobs)} child processes, "
+          f"{width} at a time")
+    children = _Children(jobs, width)
+    try:
+        return _phases(smi, clock, children)
+    finally:
+        children.stop()
 
 
-def _phases(smi, clock, child, child_out):
-    """Phases 3-5 (phase 4b is `child`, read after phase 4a)."""
+def _phases(smi, clock, children):
+    """Phases 3-5 and the batch path; phases 4b and 4c are `children`,
+    read after phase 4a."""
     import numpy as np
     import torch
 
@@ -981,17 +1225,19 @@ def _phases(smi, clock, child, child_out):
                                  f"with the CPU")
     clock.done("4a")
 
-    # ---- 4b. the main path (the child process) ---------------------------
-    child.wait(timeout=1100)
-    child_out.seek(0)
-    lines = child_out.read().splitlines()
-    for line in lines:
-        if not line.startswith('{"main_path"'):
-            print("[4b child] " + line)
-    if child.returncode != 0 or not lines \
-            or not lines[-1].startswith('{"main_path"'):
-        raise AssertionError(f"phase 4b failed (exit {child.returncode})")
-    hold = json.loads(lines[-1])["main_path"]
+    # ---- 4b and 4c (the child processes) ----------------------------------
+    ended = children.join(timeout=CHILD_TIMEOUT_S)
+    results = {}
+    for name, (rc, lines, wall) in ended.items():
+        key = '{"main_path"' if name == "4b" else '{"experiment"'
+        for line in lines:
+            if not line.startswith(key):
+                print(f"[{name} child] " + line)
+        print(f"[wall] child {name}: {wall:.1f} s, exit {rc}")
+        if rc != 0 or not lines or not lines[-1].startswith(key):
+            raise AssertionError(f"phase {name} failed (exit {rc})")
+        results[name] = json.loads(lines[-1])
+    hold = results.pop("4b")["main_path"]
     print(f"[main] standing_ee_hold({', '.join(f'{k}={v!r}' for k, v in HOLD.items())}"
           f", device='cuda'): {hold['wall_s']:.1f} s wall, K1 launches "
           f"{hold['launches']} in {HOLD_TICKS} ticks, safe {hold['safe']}, "
@@ -1011,7 +1257,10 @@ def _phases(smi, clock, child, child_out):
         if not hold[key] <= bound:
             raise AssertionError(f"main path {key} {hold[key]} > {bound}")
     launches = hold["launches"]
-    clock.done("4b (wait)")
+    exp_launches = _check_experiments(
+        {n[3:]: r["result"] for n, r in results.items()})
+    exp_walls = {n: round(w, 1) for n, (_, _, w) in ended.items()}
+    clock.done("4b-4c (wait)")
 
     # ---- 5. times ---------------------------------------------------------
     state = {"carry": carry}
@@ -1029,6 +1278,16 @@ def _phases(smi, clock, child, child_out):
     flops, nbytes = _k1_work(ma0, nv, st[1].A.shape[0], st[2].A.shape[0], 10)
     t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
     bound_ms = 1e3 * max(t_ops, t_bytes)
+    # K1-warm: the same cascade from a warm iterate (the warm buffer of a
+    # cold launch, inputs nudged 1e-3): the same iterations, so the same
+    # operations, and the (9, W) warm buffer read besides
+    _, wk = K.fused_hoqp(*st, return_warm=True)
+    nudged_st = [T.Task(*[a * (1.0 + 1e-3) for a in t]) for t in st]
+    K.fused_hoqp(*nudged_st, warm=wk)
+    k1_warm_ms = _cuda_ms(lambda: K.fused_hoqp(*nudged_st, warm=wk), reps=9,
+                          inner=20)
+    t_wbytes = (nbytes + 4 * wk.numel()) / H100_BYTES_PER_S
+    warm_bound_ms = 1e3 * max(t_ops, t_wbytes)
     print(f"[time] {tick_ms:.3f} ms per control tick (median of 9 MPC "
           f"periods of 10 ticks, K1 included), K1 {1e3 * k1_ms:.1f} us per "
           f"launch (median), plain cascade on the card {plain_ms:.1f} ms, "
@@ -1038,6 +1297,11 @@ def _phases(smi, clock, child, child_out):
           f"{nbytes} B -> bound {1e3 * bound_ms:.3f} us "
           f"({'operations' if t_ops >= t_bytes else 'bytes'}); "
           f"no single PyTorch call computes this cascade (library_ms null)")
+    print(f"[time] K1-warm {1e3 * k1_warm_ms:.1f} us per launch (median), "
+          f"beside K1-cold {1e3 * k1_ms:.1f} us; bound "
+          f"{1e3 * warm_bound_ms:.3f} us "
+          f"({'operations' if t_ops >= t_wbytes else 'bytes'}; the warm "
+          f"buffer adds {4 * wk.numel()} B)")
     # host wall time of the tick's layers, synchronized after each call
     # (before the profiler, which may leave tracing on)
     c = state["carry"]
@@ -1160,6 +1424,13 @@ def _phases(smi, clock, child, child_out):
               for k, v in sorted(stages.items())))
     profile_batched_mpc(mpc_b, mpc_b_step)
     clock.done("5-6 (profiles)")
+    paths = {"4 ticks": TICKS, "4b standing_ee_hold": launches,
+             **{f"4c {n}": v for n, v in exp_launches.items()}}
+    print(f"[kernels] K1-cold (hoqp_fused.cu, warm pointer null): launches "
+          f"per path {paths}; K1-warm (the same kernel with a warm buffer): "
+          f"no path launches it, timed alone in phase 5; K1 with grid = "
+          f"{BATCH}: {b_launches} launches of {b_blocks} blocks in phase 7's "
+          f"{BATCH_CYCLES} batched cycles")
     k1 = {"route": "cuda",
           "source": "qm_control_tpu_torch/kernels/csrc/hoqp_fused.cu",
           "replaces": "qm_control_tpu/kernels/hoqp_fused.py:619",
@@ -1169,7 +1440,9 @@ def _phases(smi, clock, child, child_out):
         dict(k1, name="hoqp_fused", launches=launches,
              max_abs_err=worst_real, ms=k1_ms, plain_ms=plain_ms,
              bound_ms=bound_ms,
-             bound_by="operations" if t_ops >= t_bytes else "bytes"),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             launches_by_path=paths, warm_ms=k1_warm_ms,
+             warm_bound_ms=warm_bound_ms),
         dict(k1, name=f"hoqp_fused[grid={BATCH}]", launches=b_launches,
              blocks=b_blocks, batch=BATCH, max_abs_err=worst_batched,
              ms=bms, plain_ms=plain_batched_ms, bound_ms=bbound,
@@ -1177,7 +1450,8 @@ def _phases(smi, clock, child, child_out):
              ms_by_batch={str(b): v[0] for b, v in k1_times.items()},
              bound_ms_by_batch={str(b): v[1] for b, v in k1_times.items()})],
         "mpc_solve_ms": mpc_ms, "cycle_ms": cycle_ms, "tick_ms": tick_ms,
-        "main_ticks": HOLD_TICKS, "batched_mpc": mpc_b,
+        "main_ticks": HOLD_TICKS, "experiments": exp_walls,
+        "batched_mpc": mpc_b,
         "batched_cycle_ms": b_cycle_ms, "rollouts": roll, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1207,6 +1481,8 @@ def mpc_batch_probe(B):
 if __name__ == "__main__":
     if sys.argv[1:] == ["--main-path"]:
         sys.exit(main_path())
+    if sys.argv[1:2] == ["--experiment"]:
+        sys.exit(experiment_child(sys.argv[2]))
     if sys.argv[1:2] == ["--mpc-batch"]:
         sys.exit(mpc_batch_probe(int(sys.argv[2])))
     sys.exit(main())

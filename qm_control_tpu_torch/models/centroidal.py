@@ -6,9 +6,8 @@ State / input layout as in the JAX module:
                q_joints(18) ]
   u in R^30 = [ contact forces 4x3 (LF, RF, LH, RH, world) ; qdot_j(18) ]
 
-`flow_map` is here without its `ee_wrench` branch (the disturbance-aware
-MPC dynamics, not ported yet); `linearize_flow_map` is not ported (the
-MPC linearizes through ocp/linearize.py).
+`linearize_flow_map` is not ported (the MPC linearizes through
+ocp/linearize.py).
 """
 from dataclasses import dataclass
 
@@ -71,11 +70,9 @@ def com_position_srbd(info: CentroidalInfo, x):
 def flow_map(model: RobotModel, info: CentroidalInfo, x, u, ee_wrench=None):
     """xdot = f(x, u): centroidal dynamics (reference QMDynamicsAD flow
     map): momentum rate from contact forces + gravity, base pose rate from
-    the frozen SRBD momentum matrix, joint rate = commanded joint velocity."""
-    if ee_wrench is not None:
-        raise NotImplementedError(
-            "flow_map(ee_wrench=...): the EE-wrench branch of the MPC "
-            "dynamics is not ported yet")
+    the frozen SRBD momentum matrix, joint rate = commanded joint velocity.
+    ee_wrench: optional world wrench [f(3); tau(3)] applied at the arm EE
+    (the disturbance-aware MPC dynamics, BASELINE config #4)."""
     q = state_to_q(x)
     forces = u[:3 * NUM_CONTACTS].reshape(NUM_CONTACTS, 3)
     v_j = u[3 * NUM_CONTACTS:]
@@ -83,6 +80,12 @@ def flow_map(model: RobotModel, info: CentroidalInfo, x, u, ee_wrench=None):
     p_com = com_position_srbd(info, x)
     f_total = forces.sum(0)
     tau_com = torch.linalg.cross(p_contacts - p_com[None, :], forces).sum(0)
+    if ee_wrench is not None:
+        from ..ocp.costs import ee_pose
+        w = torch.as_tensor(ee_wrench, dtype=x.dtype, device=x.device)
+        p_ee, _ = ee_pose(model, q)
+        f_total = f_total + w[:3]
+        tau_com = tau_com + torch.linalg.cross(p_ee - p_com, w[:3]) + w[3:]
     h_dot_lin = f_total / info.mass + const(_GRAVITY_VEC, x)
     h_dot_ang = tau_com / info.mass
     base_dot = base_velocity_from_momentum(info, x)

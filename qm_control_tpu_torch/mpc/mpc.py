@@ -71,18 +71,17 @@ def mpc_step(ocp, model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
              cold, ee_wrench=None) -> MpcPolicy:
     """One MPC solve. t, warm_shift: 0-dim tensors; cold: a bool tensor
     (or bool) choosing the QMInitializer start over the shifted warm
-    start. ee_wrench (the disturbance-aware dynamics) is not ported."""
-    if ee_wrench is not None:
-        raise NotImplementedError(
-            "mpc_step(ee_wrench=...): the EE-wrench feedthrough of the MPC "
-            "dynamics is not ported yet")
+    start. ee_wrench: an optional measured world wrench [f(3); tau(3)] at
+    the arm EE, fed through to the OCP dynamics (disturbance-aware
+    planning, beyond the reference, whose MPC never sees the wrench;
+    None = off)."""
     params = make_node_data(ms, target, x, t, cfg)
     node_data = (params.t_nodes[:-1], params.contact_flags[:-1],
                  params.swing_zdot[:-1])
     final_data = params.t_nodes[-1]
 
     def dyn(kd, xx, ww):
-        return ocp.dynamics(kd[0], kd[1], kd[2], xx, ww)
+        return ocp.dynamics(kd[0], kd[1], kd[2], xx, ww, ee_wrench=ee_wrench)
 
     def sc(kd, xx, ww):
         return ocp.stage_cost(kd[0], kd[1], kd[2], xx, ww, target)
@@ -97,10 +96,12 @@ def mpc_step(ocp, model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
         return ocp.final_quadratize(fd, xx, target)
 
     def cd(kd, xx, ww):
-        return ocp.cost_and_dynamics(kd[0], kd[1], kd[2], xx, ww, target)
+        return ocp.cost_and_dynamics(kd[0], kd[1], kd[2], xx, ww, target,
+                                     ee_wrench=ee_wrench)
 
     def sl(kd, xx, ww):
-        return ocp.stage_linearize(kd[0], kd[1], kd[2], xx, ww, target)
+        return ocp.stage_linearize(kd[0], kd[1], kd[2], xx, ww, target,
+                                   ee_wrench=ee_wrench)
 
     # QMInitializer (reference QMInitializer.cpp:18-41): weight-compensating
     # contact forces per node, the current state tiled over the horizon

@@ -63,7 +63,9 @@ def _euler_rate_axes(zyx):
 def make_structured_linearize(model: RobotModel, info: C.CentroidalInfo,
                               cfg: QmConfig):
     """stage_linearize(t, flags, zdot, x, w, target, ee_wrench=None) ->
-    (A, B, dt*L, dt*lx, dt*lw, dt*lxx, dt*lww, dt*lwx)."""
+    (A, B, dt*L, dt*lx, dt*lw, dt*lxx, dt*lww, dt*lwx); with ee_wrench the
+    dynamics carry the world wrench [f(3); tau(3)] at the arm EE
+    (centroidal.flow_map)."""
     stage_q_xu = make_stage_quadratizer_parts(model, info, cfg)
     dt = cfg.mpc.dt
     mass = info.mass
@@ -94,10 +96,11 @@ def make_structured_linearize(model: RobotModel, info: C.CentroidalInfo,
             return C.base_velocity_from_momentum(info, xx)
         return value_and_jacfwd(f, torch.cat([x[:6], x[9:12]]))
 
-    def flow_and_jacs(x, u):
+    def flow_and_jacs(x, u, ee_wrench=None, ee_pJ=None):
         """f(x,u) with the Jacobians in compact row-block form: R (9,30) =
         rows 3:12 of Jx (its only nonzero rows), S (6,30) = rows 0:6 of Ju
-        (rows 6:12 are zero, rows 12:30 the constant [0 I18])."""
+        (rows 6:12 are zero, rows 12:30 the constant [0 I18]).
+        ee_pJ: (p_ee, J_ee (3,30)) at this state when ee_wrench is set."""
         p_feet, Jb, Jl = chainfk.foot_kinematics(model, C.state_to_q(x))
         forces = u[:12].reshape(4, 3)
         p_com, J_com6 = com_and_jac(x)
@@ -116,6 +119,17 @@ def make_structured_linearize(model: RobotModel, info: C.CentroidalInfo,
                                 dim=1)                       # (3,12)
         row36 = torch.cat([z(3, 6, x), Jang_base, Jang_legs12, z(3, 6, x)],
                           dim=1) / mass
+        if ee_wrench is not None:
+            # the wrench at the EE: f_total += w_f, tau_com += (p_ee -
+            # p_com) x w_f + w_tau, so rows 3:6 gain -skew(w_f) (J_ee -
+            # J_com) / m
+            wr = torch.as_tensor(ee_wrench, dtype=x.dtype, device=x.device)
+            p_ee, J_ee = ee_pJ
+            f_total = f_total + wr[:3]
+            tau_com = (tau_com + torch.linalg.cross(p_ee - p_com, wr[:3])
+                       + wr[3:])
+            J_com30 = torch.cat([z(3, 6, x), J_com6, z(3, 18, x)], dim=1)
+            row36 = row36 - skew(wr[:3]) @ (J_ee - J_com30) / mass
         # rows 6:12: the base velocity map
         row612 = torch.cat([J_bd9[:, :6], z(6, 3, x), J_bd9[:, 6:9],
                             z(6, 18, x)], dim=1)
@@ -173,7 +187,8 @@ def make_structured_linearize(model: RobotModel, info: C.CentroidalInfo,
         return u, Jlegs, cf12, leg_null_block(c, P_swing)
 
     def ee_and_jac(x, p_ref, q_ref):
-        """EE residual e (6,) and Je (6,30) (12 tangents, arm chain)."""
+        """EE residual e (6,) and Je (6,30) (12 tangents, arm chain); the EE
+        position and its (3,30) Jacobian are e[:3] + p_ref and Je[:3]."""
         def f(p12):
             xx = torch.cat([x[:6], p12[:6], x[12:24], p12[6:12]])
             return ee_residual(model, xx, p_ref, q_ref)
@@ -185,16 +200,17 @@ def make_structured_linearize(model: RobotModel, info: C.CentroidalInfo,
 
     def stage_linearize(t, flags, zdot, x, w, target: TargetTrajectory,
                         ee_wrench=None):
-        if ee_wrench is not None:
-            raise NotImplementedError(
-                "the EE-wrench feedthrough of the MPC dynamics is not ported "
-                "yet (centroidal.flow_map's ee_wrench branch)")
         p_ref, q_ref = interpolate_ee_pose(target, t)
         e, Je = ee_and_jac(x, p_ref, q_ref)
         u, Jlegs, cf12, Nl = param_and_jac(x, w, flags, zdot)
-        f0, R0, S0 = flow_and_jacs(x, u)
+        ee_pJ = None if ee_wrench is None else (e[:3] + p_ref, Je[:3])
+        f0, R0, S0 = flow_and_jacs(x, u, ee_wrench, ee_pJ)
         x_mid = x + 0.5 * dt * f0
-        _, R1, S1 = flow_and_jacs(x_mid, u)
+        if ee_wrench is not None:
+            # the wrench's state Jacobian needs the EE Jacobian at x_mid
+            e_m, Je_m = ee_and_jac(x_mid, p_ref, q_ref)
+            ee_pJ = (e_m[:3] + p_ref, Je_m[:3])
+        _, R1, S1 = flow_and_jacs(x_mid, u, ee_wrench, ee_pJ)
 
         # F = x + dt f(x + dt/2 f(x,u), u): exact RK2 chain rule in
         # row-block form (Jx has 9 nonzero rows 3:12, Ju 6 variable rows)

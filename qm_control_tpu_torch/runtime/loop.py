@@ -11,13 +11,16 @@ tau_ff) gated by leg_command_start_time; arm (posDes, 0, kp_arm_wbc,
 kd_arm_wbc, tau_ff)), push_command and the plant substeps; then the
 cycle's metrics. Python loops stand in for the JAX package's lax.scan;
 nothing is read back to the host inside a cycle. As in the JAX cycle, the
-ticks' safety predicate checks the FRESH solve's cost.
+ticks' safety predicate checks the FRESH solve's cost. With
+LoopConfig.mpc_wrench_feedthrough the solve's dynamics carry the plant's
+measured EE wrench (the WBC always receives it).
 
 `ControlLoop.run_ticks` runs ticks without an MPC stage: it executes the
 lagged policy `carry.policy[0]` (what the ticks of the first cycle do with
 mrt_policy_lag=1: the STANCE "hold current state" policy `init_carry`
 seeds) and checks safety against that executed policy's cost, refreshing
-the yaw-unwrap reference every MPC period.
+the yaw-unwrap reference every MPC period. `ControlLoop.escape` is the
+basin-escape re-initialization between runs (two deep solves).
 """
 from typing import NamedTuple, Optional, Union
 
@@ -52,8 +55,9 @@ class LoopConfig(NamedTuple):
     # True: K1 (the CUDA kernel on the card, its plain version on CPU
     # tensors); "xla": kernels.cascade_exact (plain PyTorch); False: the
     # pivoted cascade, not ported (raises)
-    mpc_wrench_feedthrough: bool = False  # the plant's measured EE wrench
-    # in the MPC dynamics (not ported: raises)
+    mpc_wrench_feedthrough: bool = False  # feed the plant's measured EE
+    # wrench into the MPC dynamics (disturbance-aware planning, beyond the
+    # reference); off by default: one extra EE FK per flow evaluation
     mrt_policy_lag: int = 1   # ticks consume a policy this many MPC
     # periods old (the reference's async MRT semantics)
     delay_compensation_s: float = 0.0   # evaluate the executed policy at
@@ -168,10 +172,6 @@ def make_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
     ms) -> carry' runs one solve without advancing the plant."""
     from .. import resolve_device
     dev = resolve_device(device)
-    if loop_cfg.mpc_wrench_feedthrough:
-        raise NotImplementedError(
-            "mpc_wrench_feedthrough: the EE-wrench branch of the MPC "
-            "dynamics (centroidal.flow_map) is not ported yet")
     settings = settings or SqpSettings(num_iterations=cfg.mpc.num_iterations)
     ocp = make_ocp(model, info, cfg)
     tick = make_tick(model, info, loop_cfg, dev, cascade)
@@ -190,19 +190,22 @@ def make_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
         if carry.policy is not None:
             _check_depth(carry.policy, max(1, lag))
 
-    def solve(carry, target, ms, shift):
+    def solve(carry, target, ms, shift, ee_wrench=None):
         rbd = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)
         x_obs = observation_from_rbd(model, info, rbd, carry.last_yaw)
         policy = mpc_step(ocp, model, info, cfg, settings, carry.t, x_obs,
                           target, ms, carry.W_warm, carry.X_warm, shift,
-                          warm)
+                          warm, ee_wrench=ee_wrench)
         return x_obs, policy
 
     def cycle(carry: CycleCarry, target: TargetTrajectory, ms: ModeSchedule,
               gains: WbcGains):
         _check_policy_depth(carry)
         # --- estimator + MPC solve (the reference's MPC thread) ---
-        x_obs, policy = solve(carry, target, ms, period)
+        x_obs, policy = solve(
+            carry, target, ms, period,
+            carry.plant.ee_wrench if loop_cfg.mpc_wrench_feedthrough
+            else None)
         # MRT buffer: the ticks consume a `lag`-period-old policy
         if lag >= 1 and carry.policy is not None:
             exec_policy = MpcPolicy(*[a[0] for a in carry.policy])
@@ -277,6 +280,8 @@ class ControlLoop:
         self._tick = make_tick(model, info, loop_cfg, self.device, cascade)
         self._cycle, self._warmup = make_cycle(
             model, info, cfg, loop_cfg, settings, self.device, cascade)
+        self._escape = None
+        self.escape_costs = None
         self.cycle_timer = RepeatedTimer("control_cycle")
 
     def _lag(self) -> int:
@@ -312,6 +317,48 @@ class ControlLoop:
             t=torch.zeros((), dtype=f32, device=dev),
             safe=torch.ones((), dtype=torch.bool, device=dev),
             policy=_stack_policy(hold, self._lag()))
+
+    def _build_escape(self):
+        """probe(carry, target, ms) -> (cold, warm): two deep solves (12 SQP
+        iterations) on identical data, from the QMInitializer start and
+        from the carry's warm start."""
+        model, info, cfg, dev = self.model, self.info, self.cfg, self.device
+        ocp = make_ocp(model, info, cfg)
+        deep = SqpSettings(num_iterations=12)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        cold_start = torch.ones((), dtype=torch.bool, device=dev)
+
+        def probe(carry: CycleCarry, target, ms):
+            rbd = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)
+            x_obs = observation_from_rbd(model, info, rbd, carry.last_yaw)
+            # the cold solve starts from mpc_step's QMInitializer start
+            # whatever warm start it is handed
+            return tuple(mpc_step(ocp, model, info, cfg, deep, carry.t,
+                                  x_obs, target, ms, carry.W_warm,
+                                  carry.X_warm, zero, c)
+                         for c in (cold_start, ~cold_start))
+
+        return probe
+
+    def escape(self, carry: CycleCarry, target: TargetTrajectory,
+               ms: ModeSchedule, margin: float = 0.02):
+        """Basin-escape re-initialization (JAX loop.py:359-391): the
+        warm-started real-time iteration can be captured in a locally
+        optimal "stay" basin above the walking optimum. Solve deep from
+        cold and deep from warm on identical data; adopt the cold
+        solution when it beats warm by `margin`, else keep the deepened
+        warm one. The comparison is the one host read; the two costs stay
+        on the device in self.escape_costs. Returns (carry, escaped:
+        bool)."""
+        if self._escape is None:
+            self._escape = self._build_escape()
+        cold, warm = self._escape(carry, target, ms)
+        self.escape_costs = (cold.cost, warm.cost)
+        # in float64, as the JAX package compares the host floats
+        escaped = bool(cold.cost.double()
+                       < warm.cost.double() * (1.0 - margin))
+        best = cold if escaped else warm
+        return carry._replace(W_warm=best.W, X_warm=best.X), escaped
 
     def warmup(self, carry: CycleCarry, target: TargetTrajectory,
                ms: ModeSchedule, num_solves: int = 20) -> CycleCarry:

@@ -268,19 +268,41 @@ def test_device_rule():
 
 
 def test_options_not_ported_raise(solvers):
-    """What this slice leaves out raises instead of running something else:
-    the EE-wrench feedthrough of the MPC dynamics."""
+    """The EE-wrench feedthrough of the MPC dynamics, which raised before it
+    was ported, now runs: a loop with LoopConfig(mpc_wrench_feedthrough=
+    True) builds, mpc_step with a zero wrench equals mpc_step without one
+    bit for bit, and with a 25 N lateral wrench it matches the JAX mpc_step
+    at the bounds above, cold on the stance schedule."""
+    import jax
+
+    from qm_control_tpu.mpc.mpc import mpc_step as jmpc_step
+    from qm_control_tpu.ocp.problem import make_ocp as jmake_ocp
+    from qm_control_tpu.solver.sqp import SqpSettings as JSqpSettings
     from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
-    _, tm, ti, tcfg, ocp = solvers
-    with pytest.raises(NotImplementedError):
-        ControlLoop(tm, ti, tcfg, LoopConfig(mpc_wrench_feedthrough=True),
-                    device="cpu")
+    jsolver, tm, ti, tcfg, ocp = solvers
+    ControlLoop(tm, ti, tcfg, LoopConfig(mpc_wrench_feedthrough=True),
+                device="cpu")
     x0, s = _standing()
-    tt = ttarget_from_knots([0.0, 2.0], [s, s], device="cpu")
-    _, tms = _schedule("stance")
+    jt = target_from_knots([0.0, 2.0], [s, s])
+    tt = target_from_numpy(np.asarray(jt.times), np.asarray(jt.states),
+                           device="cpu")
+    jms, tms = _schedule("stance")
     N = tcfg.mpc.num_nodes
     z = torch.zeros(())
-    with pytest.raises(NotImplementedError):
-        mpc_step(ocp, tm, ti, tcfg, SqpSettings(), z, torch.tensor(x0), tt,
-                 tms, torch.zeros(N, 30), torch.zeros(N + 1, 30), z,
-                 torch.tensor(True), ee_wrench=torch.zeros(6))
+
+    def step(wrench):
+        return mpc_step(ocp, tm, ti, tcfg, SqpSettings(), z,
+                        torch.tensor(x0), tt, tms, torch.zeros(N, 30),
+                        torch.zeros(N + 1, 30), z, torch.tensor(True),
+                        ee_wrench=wrench)
+    free, zero = step(None), step(torch.zeros(6))
+    for a, b in zip(free, zero):
+        assert torch.equal(a, b)
+    wrench = np.float32([0.0, -25.0, 0.0, 0.0, 0.0, 0.0])
+    jocp = jmake_ocp(jsolver.model, jsolver.info, jsolver.cfg)
+    jp = jax.jit(lambda: jmpc_step(
+        jocp, jsolver.model, jsolver.info, jsolver.cfg,
+        JSqpSettings(num_iterations=1), 0.0, jnp.asarray(x0), jt, jms,
+        jnp.zeros((N, 30)), jnp.zeros((N + 1, 30)), 0.0, True,
+        ee_wrench=jnp.asarray(wrench)))()
+    _close(jp, step(torch.tensor(wrench)))
