@@ -8,10 +8,13 @@ BASELINE.json configs:
   4. disturbance_rejection - a sustained lateral EE force, with or
                              without the MPC's wrench feedthrough
   5. batched_rollouts      - a domain-randomized fleet of batched solves
+  6. mpc_variant_standing  - the QMMpcController variant standing: the
+                             MPC-only WBC on the legs, the arm under
+                             position PIDs
 
-Configs 1-4 run the closed loop (MPC + WBC + plant) with the JAX package's
-host protocol: chunks of MPC periods, targets re-issued between chunks,
-a receding mode-schedule window. Each runs on `device` (default "cuda")
+Configs 1-4 and 6 run the closed loop (MPC + WBC + plant) with the JAX
+package's host protocol: chunks of MPC periods, targets re-issued between
+chunks, a receding mode-schedule window. Each runs on `device` (default "cuda")
 and returns the JAX function's metrics dict.
 """
 import dataclasses
@@ -31,6 +34,7 @@ from .ocp.reference import cmd_vel_to_target, target_from_knots
 from .parallel.batch import BatchScenario, make_batched_mpc_step
 from .runtime.estimator import observation_from_rbd, rbd_state_from_plant
 from .runtime.loop import ControlLoop, LoopConfig
+from .runtime.mpc_loop import MpcControlLoop
 from .runtime.plant import PlantConfig, delay_steps_for
 from .utils.viz import TrajectoryLog
 
@@ -450,4 +454,44 @@ def batched_rollouts(cfg: Optional[QmConfig] = None, batch: int = 64,
         "finite_fraction": float(np.isfinite(costs).mean()),
         "cost_mean": float(np.nanmean(costs)),
         "cost_p95": float(np.nanpercentile(costs, 95)),
+    }
+
+
+def mpc_variant_standing(cfg: Optional[QmConfig] = None,
+                         duration: float = 2.0, warmup: int = 25,
+                         transient: float = 0.5, device="cuda") -> dict:
+    """QMMpcController-variant validation (reference
+    QMController.cpp:368-445): the legs driven by the MPC-only WBC's hybrid
+    commands (the pivoted cascade), the arm under position PIDs tracking
+    integrated MPC joint velocities, 500 Hz ticks of LoopConfig().
+    Standing stance: checks that the base holds its height and the arm
+    follows the MPC plan."""
+    cfg = cfg or _default_cfg()
+    model, info, q0, s = _standing_setup(cfg)
+    loop = MpcControlLoop(model, info, cfg, LoopConfig(), device=device)
+    dev = loop.device
+    ms = GaitSchedule(GAIT_LIBRARY["stance"]).mode_schedule(
+        0.0, duration + 5, device=dev)
+    target = target_from_knots([0.0, duration + 5], [s, s], device=dev)
+    carry = loop.init_carry(q0)
+    carry = loop.warmup(carry, target, ms, num_solves=warmup)
+    chunk = max(1, int(0.25 * cfg.mpc.mpc_frequency))
+    pos_errs, heights, arm_errs, safes = [], [], [], []
+    log = TrajectoryLog()
+    while float(carry.base.t) < duration:
+        carry, m = loop.run(carry, target, ms, chunk, log=log)
+        if float(carry.base.t) > transient:
+            pos_errs.append(float(m.ee_pos_err[-1]))
+            heights.append(float(m.base_height[-1]))
+            arm_err = (carry.base.plant.q[18:24] - carry.arm_cmd).abs()
+            arm_errs.append(float(arm_err.max()))
+        safes.append(bool(m.safe[-1]))
+    return {
+        "experiment": "mpc_variant_standing",
+        "ee_pos_err_max_mm": 1e3 * float(np.max(pos_errs)),
+        "base_height_err_max_mm": 1e3 * float(np.max(np.abs(
+            np.asarray(heights) - 0.4))),
+        "arm_track_err_max_rad": float(np.max(arm_errs)),
+        "safe": all(safes),
+        "log": log,
     }

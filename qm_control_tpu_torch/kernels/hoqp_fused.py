@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..wbc.qp import _pd_inverse
 from ..wbc.tasks import NUM_DECISION_VARS, Task
 
 _EPS_H = 3e-6       # relative ridge on the level Hessian
@@ -63,29 +64,6 @@ block_count = 0
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _gj_inverse(M):
-    """Inverse of an SPD (n,n) matrix by Gauss-Jordan with diagonal
-    pivoting: the largest remaining diagonal (ties toward the smallest
-    index), pivots floored at 1e-10 * (sum|diag| / n + 1)."""
-    n = M.shape[0]
-    floor = 1e-10 * (M.diagonal().abs().sum() / n + 1.0)
-    aug = torch.cat([M, torch.eye(n, dtype=M.dtype, device=M.device)], dim=1)
-    elim = torch.zeros(n, dtype=torch.bool, device=M.device)
-    neg = torch.full((n,), -3e38, dtype=M.dtype, device=M.device)
-    for _ in range(n):
-        cand = torch.where(elim, neg, aug[:, :n].diagonal())
-        p = torch.argmax(cand).reshape(1)          # first max = smallest index
-        col = aug.index_select(1, p)[:, 0]
-        piv = col.index_select(0, p)[0]
-        piv = torch.where(piv.abs() < floor,
-                          torch.where(piv < 0, -floor, floor), piv)
-        row = aug.index_select(0, p)[0] / piv
-        aug = aug - col[:, None] * row[None, :]
-        aug = aug.index_copy(0, p, row[None, :])
-        elim = elim.index_fill(0, p, True)
-    return aug[:, n:]
-
-
 def _refined_solve(Minv, M, rhs):
     """Minv rhs with one step of materialized iterative refinement."""
     x = Minv @ rhs
@@ -98,6 +76,46 @@ def _refined_solve_op(Minv, Mmv, rhs, steps=2):
     for _ in range(steps):
         x = x + Minv @ (rhs - Mmv(x))
     return x
+
+
+def _kernel_basis_qr(Az, rel_tol=1e-5):
+    """Orthonormal basis of ker(Az) as an (n, n) matrix whose non-kernel
+    columns are exact zeros (wbc.hoqp._kernel_basis, behind
+    wbc.hoqp.USE_QR_BASIS). Column-pivoted Householder QR of B = Az'
+    (n z-rows x m task-row columns): each of the m steps picks the
+    remaining column of largest norm below row k (the first on ties),
+    reflects it onto e_k and accumulates Q by rank-1 updates. The
+    numerical rank counts the steps whose pivot norm exceeds rel_tol x
+    the largest initial column norm; the basis is Q's trailing n - rank
+    columns. The JAX function runs on 128-lane padded buffers with a
+    one-hot pivot; this one runs on exact shapes with an argmax and
+    1-element index_select (no host read, vmap-safe)."""
+    n, m = Az.shape[1], Az.shape[0]
+    dt, dev = Az.dtype, Az.device
+    rows = torch.arange(n, device=dev)
+    B = Az.T
+    Q = torch.eye(n, dtype=dt, device=dev)
+    unproc = torch.ones(m, dtype=torch.bool, device=dev)
+    rank = torch.zeros((), dtype=dt, device=dev)
+    norm0 = torch.sqrt((B * B).sum(0).max() + 1e-30)
+    for k in range(m):
+        rowmask = (rows >= k).to(dt)
+        ek = (rows == k).to(dt)
+        norms = (B * B * rowmask[:, None]).sum(0)
+        j = torch.argmax(torch.where(unproc, norms, -1.0)).reshape(1)
+        col_norm2 = norms.index_select(0, j)[0]
+        is_rank = (torch.sqrt(col_norm2) > rel_tol * norm0).to(dt)
+        v = B.index_select(1, j)[:, 0] * rowmask
+        alpha = torch.sqrt(col_norm2 + 1e-30)
+        sgn = torch.where((v * ek).sum() >= 0, 1.0, -1.0)
+        v = v + sgn * alpha * ek
+        vtv = (v * v).sum()
+        beta = torch.where(vtv > 1e-30, 2.0 / vtv, 0.0) * is_rank
+        B = B - v[:, None] * (beta * (v @ B))[None, :]
+        Q = Q - (Q @ v)[:, None] * (beta * v)[None, :]
+        unproc = unproc.index_fill(0, j, False)
+        rank = rank + is_rank
+    return Q * (rows.to(dt) >= rank).to(dt)[None, :]
 
 
 def _tmap(f, *trees):
@@ -221,7 +239,7 @@ def cascade_plain(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
         ma = Az.shape[0]
         gram = Az @ Az.T
         lam_r = _EPS_NULL * (gram.diagonal().sum() / ma + 1.0)
-        graminv = _gj_inverse(gram + lam_r * torch.eye(ma, dtype=dt,
+        graminv = _pd_inverse(gram + lam_r * torch.eye(ma, dtype=dt,
                                                        device=dev))
         return eye - Az.T @ (graminv @ Az)
 
@@ -238,7 +256,7 @@ def cascade_plain(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
         return Az, Hz, cz, hz_mv
 
     def init_solve(Hz, cz, hz_mv):
-        return _refined_solve_op(_gj_inverse(Hz), hz_mv, -cz)
+        return _refined_solve_op(_pd_inverse(Hz), hz_mv, -cz)
 
     if warm is not None:
         w_valid = torch.clamp(warm[0].max(), max=1.0)
@@ -252,7 +270,7 @@ def cascade_plain(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
 
         def solveM(d, rhs):
             S = Hz + B.T @ (d[0][:, None] * B)
-            return (_refined_solve(_gj_inverse(S), S, rhs[0]),)
+            return (_refined_solve(_pd_inverse(S), S, rhs[0]),)
 
         scale = torch.clamp(torch.linalg.vector_norm(cz), min=1.0)
         x0 = (init_solve(Hz, cz, hz_mv),)
@@ -287,7 +305,7 @@ def cascade_plain(t0: Task, t1: Task, t2: Task, qp_iters: int = 10,
         w = d2 * (1.0 + d1) / mvv
         S = Hz0 + D.T @ (w[:, None] * D)
         rz_s = rz + D.T @ (d2 * rv / mvv)
-        dz = _refined_solve(_gj_inverse(S), S, rz_s)
+        dz = _refined_solve(_pd_inverse(S), S, rz_s)
         return (dz, (rv + d2 * (D @ dz)) / mvv)
 
     zeros_v = torch.zeros(nv, dtype=dt, device=dev)

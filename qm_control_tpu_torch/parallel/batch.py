@@ -88,17 +88,15 @@ def make_batched_wbc(model: RobotModel, info: C.CentroidalInfo,
     cascade="fused" (default): K1, one launch with grid = B on the card
     (its plain version per scenario on CPU tensors); "xla": the exact-shape
     cascade in plain PyTorch (kernels.cascade_exact, the JAX package's
-    default); "hoqp", the pivoted reference cascade, is not ported."""
+    default); "hoqp": vmap of the pivoted reference cascade
+    (wbc.hoqp.hoqp_solve)."""
     from .. import resolve_device
-    if cascade == "hoqp":
-        raise NotImplementedError("cascade='hoqp' (wbc/hoqp.py, wbc/qp.py) "
-                                  "is not ported; use 'fused' or 'xla'")
-    if cascade not in ("fused", "xla"):
+    fused = {"fused": True, "xla": "xla", "hoqp": False}.get(cascade)
+    if fused is None:
         raise ValueError(f"cascade={cascade!r}: 'fused', 'xla' or 'hoqp'")
     gains = gains or WbcGains()
     tau_max = torch.as_tensor(model.joint_effort, dtype=torch.float32,
                               device=resolve_device(device))
-    fused = True if cascade == "fused" else "xla"
 
     def one(x_des, u_des, input_last, q, v, flags, period, time):
         return hierarchical_wbc_update(model, info, gains, tau_max, x_des,

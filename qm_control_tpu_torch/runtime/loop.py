@@ -54,7 +54,8 @@ class LoopConfig(NamedTuple):
     fused_wbc: Union[bool, str, None] = None   # the WBC cascade. None,
     # True: K1 (the CUDA kernel on the card, its plain version on CPU
     # tensors); "xla": kernels.cascade_exact (plain PyTorch); False: the
-    # pivoted cascade, not ported (raises)
+    # pivoted cascade (wbc/hoqp.py). The JAX package resolves None to the
+    # pivoted cascade off the TPU; the port resolves it to K1
     mpc_wrench_feedthrough: bool = False  # feed the plant's measured EE
     # wrench into the MPC dynamics (disturbance-aware planning, beyond the
     # reference); off by default: one extra EE FK per flow evaluation

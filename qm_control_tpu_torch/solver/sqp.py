@@ -7,7 +7,8 @@ unstable system never produces a diverging rollout. One iteration:
   1. linearize the dynamics and quadratize the cost at (X, W), vmapped
      over the nodes (torch.func.vmap);
   2. the Riccati backward sweep with defect (affine) terms, a Python loop
-     over the nodes;
+     over the nodes (or, with SqpSettings.parallel_riccati, the
+     associative scan of solver/pariccati.py);
   3. the line search: every step length alpha runs the linear forward pass
      dw = alpha k + K dx, dx' = A dx + B dw + alpha d (all candidates at
      once, batched along a leading axis), its merit is evaluated for all
@@ -35,7 +36,10 @@ class SqpSettings(NamedTuple):
     # Cholesky with its clamp, the JAX package's default). False: LU
     # solves (torch.linalg.solve_ex), fewer and larger launches.
     unrolled_ops: bool = True
-    parallel_riccati: bool = False   # the associative-scan sweep (not ported)
+    # True: the associative-scan Riccati and prefix-scan rollout of
+    # solver/pariccati.py, ceil(log2 N) rounds of batched solves instead of
+    # N dependent steps
+    parallel_riccati: bool = False
 
 
 class SqpSolution(NamedTuple):
@@ -76,10 +80,6 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
     holds them with a leading N axis). stage_linearize(kd, x, w) -> (A, B,
     l, lx, lw, lxx, lww, lwx) is the fused path; without it, A and B come
     from jacfwd of the dynamics and the rest from stage_quad."""
-    if settings.parallel_riccati:
-        raise NotImplementedError(
-            "parallel_riccati: the associative-scan Riccati "
-            "(solver/pariccati.py) is not ported yet")
     N, nw = W_init.shape
     nx = x0.shape[0]
     reg = settings.reg
@@ -161,7 +161,7 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
             return torch.linalg.solve_ex(A, B)[0]    # no error check: no sync
     eye_reg = reg * torch.eye(nw, dtype=dtype, device=dev)
 
-    def backward(A, B, lx, lu, lxx, luu, lux, d, VxN, VxxN):
+    def serial_backward(A, B, lx, lu, lxx, luu, lux, d, VxN, VxxN):
         Vx, Vxx = VxN, VxxN
         kffs, Kfbs = [None] * N, [None] * N
         for k in reversed(range(N)):
@@ -184,7 +184,7 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
             kffs[k], Kfbs[k] = kff, Kfb
         return torch.stack(kffs), torch.stack(Kfbs)
 
-    def linear_forward(X, W, A, B, d, kffs, Kfbs):
+    def serial_forward(X, W, A, B, d, kffs, Kfbs):
         """All candidates at once: dx (C, nx) per node."""
         a = alphas[:, None]
         dx = torch.zeros(alphas.shape[0], nx, dtype=dtype, device=dev)
@@ -196,6 +196,22 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
             dx = mv(A[k], dx) + mv(B[k], dw) + a * d[k]
         dXs.append(dx)
         return X + torch.stack(dXs, dim=1), W + torch.stack(dWs, dim=1)
+
+    if settings.parallel_riccati:
+        from .pariccati import parallel_backward, parallel_linear_forward
+
+        def backward(A, B, lx, lu, lxx, luu, lux, d, VxN, VxxN):
+            return parallel_backward(A, B, lx, lu, lxx, luu, lux, d, VxN,
+                                     VxxN, reg)
+
+        # one prefix scan per step-length candidate, vmapped over them
+        candidates = vmap(parallel_linear_forward,
+                          in_dims=(None,) * 7 + (0,))
+
+        def linear_forward(X, W, A, B, d, kffs, Kfbs):
+            return candidates(X, W, A, B, d, kffs, Kfbs, alphas)
+    else:
+        backward, linear_forward = serial_backward, serial_forward
 
     g_max, g_min = settings.g_max, settings.g_min
     X = torch.cat([x0[None].to(dtype), X_init[1:]])

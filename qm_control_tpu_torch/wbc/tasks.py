@@ -16,6 +16,7 @@ from torch.func import jacfwd, jvp, vmap
 
 from ..models import centroidal as C
 from ..models import dynamics as D
+from ..models import kinematics as K
 from ..models._const import const
 from ..models.rotations import (euler_zyx_rate_to_omega_world_matrix,
                                 euler_zyx_to_R, rotation_error_world)
@@ -46,6 +47,11 @@ class Task(NamedTuple):
 
 def _empty_rows(like):
     return (like.new_zeros((0, NUM_DECISION_VARS)), like.new_zeros((0,)))
+
+
+def empty_task(dtype=torch.float32, device=None) -> Task:
+    z, v = _empty_rows(torch.zeros((), dtype=dtype, device=device))
+    return Task(z, v, z, v)
 
 
 def eq_task(A, b) -> Task:
@@ -140,6 +146,15 @@ def _measured_from_suite(q, v, contact_flags, s, ds):
                    contact_flags=torch.as_tensor(contact_flags).to(q))
 
 
+def compute_measured(model: RobotModel, q, v, contact_flags) -> WbcData:
+    """The measured side alone (reference WbcBase.cpp:134-191): one
+    rbd_suite evaluation and one 24-tangent jacfwd of it."""
+    def suite(qq):
+        return D.rbd_suite(model, qq)
+    return _measured_from_suite(q, v, contact_flags, suite(q),
+                                jacfwd(suite)(q))
+
+
 def compute_wbc_data(model: RobotModel, info: C.CentroidalInfo,
                      state_des, input_des, input_last, q, v,
                      contact_flags, period):
@@ -176,6 +191,28 @@ def compute_wbc_data(model: RobotModel, info: C.CentroidalInfo,
                    feet_pos=s1.feet_pos, feet_vel=feet_vel,
                    ee_pos=s1.ee_pos, ee_R=s1.ee_R, ee_vel=s1.ee_J @ v_des)
     return m, d
+
+
+def compute_desired(model: RobotModel, info: C.CentroidalInfo,
+                    state_des, input_des, input_last, period) -> WbcDesired:
+    """The desired side alone (reference WbcBase::updateDesired :193-226):
+    the base acceleration Ab^-1 (m hdot_des - Adot v - Aj qdd_j), joint
+    accelerations differenced from consecutive MPC inputs; one jvp gives
+    A and Adot together."""
+    q_des = C.state_to_q(state_des)
+    v_base = C.base_velocity_from_momentum(info, state_des)
+    v_des = torch.cat([v_base, input_des[12:]])
+    joint_acc = (input_des[12:] - input_last[12:]) / period
+    A, Adot = jvp(lambda qq: D.centroidal_momentum_matrix(model, qq),
+                  (q_des,), (v_des,))
+    Ab, Aj = A[:, :6], A[:, 6:]
+    hdot = C.flow_map(model, info, state_des, input_des)[:6] * info.mass
+    rate = hdot - Adot @ v_des - Aj @ joint_acc
+    base_acc = torch.linalg.solve_ex(Ab, rate)[0]
+    Jc, _, ee_J, feet_pos, ee_pos, ee_R = K.frame_kinematics(model, q_des)
+    return WbcDesired(q=q_des, v=v_des, base_acc=base_acc,
+                      feet_pos=feet_pos, feet_vel=(Jc @ v_des).reshape(4, 3),
+                      ee_pos=ee_pos, ee_R=ee_R, ee_vel=ee_J @ v_des)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Hierarchical whole-body controller (port of qm_control_tpu/wbc/wbc.py;
-reference qm_wbc/src/HierarchicalWbc.cpp:18-44):
+"""Hierarchical whole-body controllers (port of qm_control_tpu/wbc/wbc.py;
+reference qm_wbc/src/HierarchicalWbc.cpp:18-44 and
+HierarchicalMpcWbc.cpp:18-34):
 
   T0 (hard):   floating-base EoM + torque limits + stance no-motion +
                friction cone
@@ -8,13 +9,17 @@ reference qm_wbc/src/HierarchicalWbc.cpp:18-44):
                nominal tracking instead, as a row-level blend]
   T2 (slack):  contact-force tracking + base linear
 
-The cascade runs through K1 (kernels.hoqp_fused.fused_hoqp): the CUDA
-kernel on the card, its plain version on CPU tensors; under
-`torch.func.vmap` the whole batch is one K1 launch. `fused_cascade="xla"`
-runs the exact-shape cascade in plain PyTorch (kernels/cascade_exact.py),
-the JAX package's batch path. The pivoted cascade (`fused_cascade=False`:
-wbc/hoqp.py + wbc/qp.py) and `hierarchical_mpc_wbc_update` are still to
-port (ROADMAP); asking for them raises.
+The MPC-only variant (`hierarchical_mpc_wbc_update`, the arm under
+position control) has no arm or EE task: T1 is base height + base
+angular + base linear + swing leg, T2 contact-force tracking.
+
+The cascade: K1 (kernels.hoqp_fused.fused_hoqp; the CUDA kernel on the
+card, its plain version on CPU tensors, one launch for a whole
+`torch.func.vmap` batch), "xla" (kernels/cascade_exact.py, the JAX
+package's batch path) or False, the pivoted cascade (wbc/hoqp.py +
+wbc/qp.py). hierarchical_wbc_update defaults to K1 where the JAX function
+defaults to the pivoted cascade; hierarchical_mpc_wbc_update keeps JAX's
+default, the pivoted cascade.
 """
 from typing import NamedTuple
 
@@ -23,12 +28,14 @@ import torch
 from ..config import WbcGains
 from ..models import centroidal as C
 from ..models.spec import RobotModel
+from .hoqp import hoqp_solve
 from .tasks import (Task, arm_joint_tracking_task, base_angular_task,
                     base_height_task, base_linear_task, compute_wbc_data,
                     contact_force_task, ee_angular_task, ee_linear_task,
                     floating_base_eom_task, friction_cone_task,
                     no_contact_motion_task, recover_torques, swing_leg_task,
                     torque_limits_task)
+
 
 class WbcResult(NamedTuple):
     x_opt: torch.Tensor      # (36,) [v_dot(24); F(12)]
@@ -43,16 +50,30 @@ def _blend_tasks(t_a, t_b, w_b):
                 (1.0 - w_b) * t_a.b + w_b * t_b.b, t_a.D, t_a.f)
 
 
+def _hard_level(m, gains: WbcGains, tau_max, ee_wrench):
+    """T0, the hard level of both stacks."""
+    return (floating_base_eom_task(m, ee_wrench)
+            + torque_limits_task(m, tau_max, ee_wrench)
+            + no_contact_motion_task(m)
+            + friction_cone_task(m, gains.friction_coefficient))
+
+
+def _pivoted(t0, t1, t2):
+    return hoqp_solve([t0, t1, t2])
+
+
+def _result(m, x_opt, ee_wrench) -> WbcResult:
+    return WbcResult(x_opt=x_opt, torques=recover_torques(m, x_opt, ee_wrench),
+                     vdot=x_opt[:24], forces=x_opt[24:])
+
+
 def wbc_stack(model: RobotModel, info: C.CentroidalInfo, gains: WbcGains,
               tau_max, state_des, input_des, input_last, q, v,
               contact_flags, period, time, ee_wrench=None):
     """(WbcData, (t0, t1, t2)): the three priority levels of one tick."""
     m, d = compute_wbc_data(model, info, state_des, input_des, input_last,
                             q, v, contact_flags, period)
-    t0 = (floating_base_eom_task(m, ee_wrench)
-          + torque_limits_task(m, tau_max, ee_wrench)
-          + no_contact_motion_task(m)
-          + friction_cone_task(m, gains.friction_coefficient))
+    t0 = _hard_level(m, gains, tau_max, ee_wrench)
     t1_run = (base_height_task(m, d, gains.base_height_kp,
                                gains.base_height_kd)
               + base_angular_task(m, d, gains.kp_base_angular,
@@ -89,27 +110,57 @@ def hierarchical_wbc_update(model: RobotModel, info: C.CentroidalInfo,
     """One WBC solve (reference HierarchicalWbc::update :18-44). ee_wrench:
     measured world wrench [f(3); tau(3)] at the arm EE, entering the EoM,
     torque limits and torque recovery. fused_cascade: True (K1,
-    kernels.hoqp_fused.fused_hoqp) or "xla" (kernels.cascade_exact);
-    False (the pivoted cascade) is not ported and raises. cascade: an
+    kernels.hoqp_fused.fused_hoqp), "xla" (kernels.cascade_exact) or
+    False (the pivoted cascade, wbc.hoqp.hoqp_solve). cascade: an
     explicit solver of the three levels, overriding fused_cascade;
     chip_smoke.py passes cascade_plain to hold the main path on the card
     against the plain version."""
-    if fused_cascade is not True and fused_cascade != "xla":
-        raise NotImplementedError(
-            f"fused_cascade={fused_cascade!r}: the pivoted XLA cascade "
-            "(wbc/hoqp.py, wbc/qp.py) is a ROADMAP item still to port; use "
-            "True (K1) or 'xla' (kernels/cascade_exact.py)")
     if cascade is None and fused_cascade == "xla":
         from ..kernels.cascade_exact import cascade_exact as cascade
-    elif cascade is None:
+    elif cascade is None and fused_cascade:
         from ..kernels.hoqp_fused import fused_hoqp as cascade
+    elif cascade is None:
+        cascade = _pivoted
     m, (t0, t1, t2) = wbc_stack(model, info, gains, tau_max, state_des,
                                 input_des, input_last, q, v, contact_flags,
                                 period, time, ee_wrench)
-    x_opt = cascade(t0, t1, t2)
-    tau = recover_torques(m, x_opt, ee_wrench)
-    return WbcResult(x_opt=x_opt, torques=tau, vdot=x_opt[:24],
-                     forces=x_opt[24:])
+    return _result(m, cascade(t0, t1, t2), ee_wrench)
+
+
+def mpc_wbc_stack(model: RobotModel, info: C.CentroidalInfo, gains: WbcGains,
+                  tau_max, state_des, input_des, input_last, q, v,
+                  contact_flags, period, ee_wrench=None):
+    """(WbcData, (t0, t1, t2)): the MPC-only variant's levels (reference
+    HierarchicalMpcWbc.cpp:18-34), 30/56, 18 and 12 rows."""
+    m, d = compute_wbc_data(model, info, state_des, input_des, input_last,
+                            q, v, contact_flags, period)
+    t1 = (base_height_task(m, d, gains.base_height_kp, gains.base_height_kd)
+          + base_angular_task(m, d, gains.kp_base_angular,
+                              gains.kd_base_angular)
+          + base_linear_task(m, d, gains.kp_base_linear, gains.kd_base_linear)
+          + swing_leg_task(m, d, gains.kp_swing,
+                           gains.kd_swing).scaled(gains.swing_task_weight))
+    return m, (_hard_level(m, gains, tau_max, ee_wrench), t1,
+               contact_force_task(m, input_des))
+
+
+def hierarchical_mpc_wbc_update(model: RobotModel, info: C.CentroidalInfo,
+                                gains: WbcGains, tau_max,
+                                state_des, input_des, input_last,
+                                q, v, contact_flags, period,
+                                ee_wrench=None,
+                                fused_cascade: bool = False) -> WbcResult:
+    """MPC-only variant: no arm/EE tasks (the arm is handled by position
+    controllers). fused_cascade: False (the pivoted cascade, the JAX
+    default) or True (K1)."""
+    m, stack = mpc_wbc_stack(model, info, gains, tau_max, state_des,
+                             input_des, input_last, q, v, contact_flags,
+                             period, ee_wrench)
+    if fused_cascade:
+        from ..kernels.hoqp_fused import fused_hoqp as cascade
+    else:
+        cascade = _pivoted
+    return _result(m, cascade(*stack), ee_wrench)
 
 
 class HierarchicalWbc:

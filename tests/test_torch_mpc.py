@@ -190,24 +190,30 @@ def test_mpc_step_cold_then_warm_matches_jax(solvers, gait):
 
 
 def test_unrolled_ops_false_agrees(solvers):
-    """The LU-solve Riccati path gives the same solution."""
+    """The LU-solve Riccati path gives the same solution, and so does the
+    associative-scan sweep (parallel_riccati=True), at
+    tests/test_pariccati.py's bounds (W 5e-3 of 1 + |W|, cost 1e-2
+    relative) with the same accepted step."""
     _, tm, ti, tcfg, ocp = solvers
     x0, s = _standing()
     tt = ttarget_from_knots([0.0, 2.0], [s, s], device="cpu")
     _, tms = _schedule("trot")
     N = tcfg.mpc.num_nodes
     z = torch.zeros(())
-    out = [mpc_step(ocp, tm, ti, tcfg, SqpSettings(unrolled_ops=u), z,
+    out = [mpc_step(ocp, tm, ti, tcfg, st, z,
                     torch.tensor(x0), tt, tms, torch.zeros(N, 30),
                     torch.zeros(N + 1, 30), z, torch.tensor(True))
-           for u in (True, False)]
+           for st in (SqpSettings(unrolled_ops=True),
+                      SqpSettings(unrolled_ops=False),
+                      SqpSettings(parallel_riccati=True))]
     assert float(out[0].alpha) == float(out[1].alpha)
     assert float(out[1].cost) == pytest.approx(float(out[0].cost), rel=1e-4)
     torch.testing.assert_close(out[1].X, out[0].X, atol=1e-4, rtol=0)
-    with pytest.raises(NotImplementedError):
-        mpc_step(ocp, tm, ti, tcfg, SqpSettings(parallel_riccati=True), z,
-                 torch.tensor(x0), tt, tms, torch.zeros(N, 30),
-                 torch.zeros(N + 1, 30), z, torch.tensor(True))
+    assert float(out[2].alpha) == float(out[0].alpha)
+    cs = float(out[0].cost)
+    assert abs(float(out[2].cost) - cs) < 1e-2 * (1 + abs(cs))
+    assert (out[2].W - out[0].W).abs().max() < 5e-3 * (
+        1 + out[0].W.abs().max())
 
 
 # ----------------------------------------------------------------- golden ---

@@ -25,6 +25,14 @@ Tolerances:
     per-level objectives of the port's stack: within twice the JAX
     batch's own gap to JAX's single call plus 0.2 max(|o|, 1) + 0.6, and
     the residual criterion of tests/test_torch_kernel_hoqp.py.
+  * batched WBC with the "hoqp" cascade (vmap of the pivoted cascade)
+    against JAX's make_batched_wbc(cascade="hoqp"): the residual
+    criterion, and the per-level objectives within twice JAX's own spread
+    (its batched-vs-single gap and its single call's move under 1e-7
+    dust on q, four draws) plus 0.2 max(|o|, 1) + 0.6; against the port's
+    single hoqp_solve per scenario by the same rule (vmapped products sum
+    in another order: on trot the 10-iteration IP's level-0 violation
+    then lands anywhere in 0-4, in JAX as in the port);
   * the custom op under vmap on CPU tensors: bit for bit a loop of
     fused_hoqp (its CPU implementation solves one cascade at a time).
 """
@@ -51,6 +59,7 @@ from qm_control_tpu_torch.ocp.problem import make_ocp
 from qm_control_tpu_torch.parallel import (make_batched_mpc_step,
                                            make_batched_wbc)
 from qm_control_tpu_torch.solver.sqp import SqpSettings
+from qm_control_tpu_torch.wbc.hoqp import hoqp_solve
 from qm_control_tpu_torch.wbc.tasks import Task as TTask
 from qm_control_tpu_torch.wbc.wbc import wbc_stack
 
@@ -177,8 +186,48 @@ def test_batched_wbc_xla_matches_jax(model, port_model):
         ot, oj, o1 = (_objectives(stack, x) for x in (xt, xj, x1))
         assert (np.abs(ot - oj) <= 2.0 * np.abs(o1 - oj) + 0.2 * np.maximum(
             np.abs(oj), 1.0) + 0.6).all(), (i, ot, oj, o1)
-    with pytest.raises(NotImplementedError):
-        make_batched_wbc(tm, ti, cascade="hoqp", device="cpu")
+    # cascade="hoqp": vmap of the pivoted cascade, held by the same level
+    # rule against JAX's make_batched_wbc(cascade="hoqp") and its single
+    # pivoted call, and against the port's single call per scenario
+    jw = jax.jit(jmake(model, JC.make_centroidal_info(model), jcfg.wbc,
+                       cascade="hoqp"))
+    jr = jw(*map(jnp.asarray, args), jnp.float32(0.002), jnp.float32(20.0))
+    tw = make_batched_wbc(tm, ti, tcfg.wbc, cascade="hoqp", device="cpu")
+    tr = tw(*map(torch.from_numpy, args), torch.tensor(0.002),
+            torch.tensor(20.0))
+    assert torch.isfinite(tr.x_opt).all()
+    jone = jax.jit(lambda *a: jupdate(model, jinfo, jcfg.wbc, jeffort, *a,
+                                      fused_cascade=False).x_opt)
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        one = [torch.from_numpy(a[i]) for a in args]
+        _, stack = wbc_stack(tm, ti, tcfg.wbc, tau_max, *one,
+                             torch.tensor(0.002), torch.tensor(20.0))
+        t1 = hoqp_solve(list(stack)).numpy().astype(np.float64)
+        stack = [tuple(a.numpy().astype(np.float64) for a in t)
+                 for t in stack]
+        xt = tr.x_opt[i].numpy().astype(np.float64)
+        xj = np.asarray(jr.x_opt[i], np.float64)
+        x1 = np.asarray(jone(*[jnp.asarray(a[i]) for a in args],
+                             jnp.float32(0.002), jnp.float32(20.0)),
+                        np.float64)
+        assert _residuals_ok(stack, xt, xj)
+        ot, oj, o1, ot1 = (_objectives(stack, x) for x in (xt, xj, x1, t1))
+        # JAX's own spread: its batched-vs-single gap, and its single call
+        # under 1e-7 dust on q (four draws; on trot the level-0 violation
+        # of the 10-iteration IP alone moves by up to ~4 Nm)
+        spread = np.abs(o1 - oj)
+        for _ in range(4):
+            qd = args[3][i] * (1.0 + 1e-7 * rng.standard_normal(24))
+            xd = jone(*[jnp.asarray(a[i]) for a in args[:3]],
+                      jnp.asarray(qd, jnp.float32),
+                      *[jnp.asarray(a[i]) for a in args[4:]],
+                      jnp.float32(0.002), jnp.float32(20.0))
+            spread = np.maximum(spread, np.abs(_objectives(
+                stack, np.asarray(xd, np.float64)) - o1))
+        for o, ref in ((ot, oj), (ot, ot1)):
+            assert (np.abs(o - ref) <= 2.0 * spread + 0.2 * np.maximum(
+                np.abs(ref), 1.0) + 0.6).all(), (i, o, ref, spread)
 
 
 def test_custom_op_under_vmap_is_a_loop_of_fused_hoqp(port_model):

@@ -118,24 +118,124 @@ def test_hierarchical_wbc_wrapper_cpu(setup):
 
 
 def test_unported_cascades_raise(setup):
-    """fused_cascade=False (the pivoted cascade, wbc/hoqp.py + wbc/qp.py)
-    is not ported and raises, from the update and from a loop built with
-    LoopConfig(fused_wbc=False); "xla" is ported (kernels/cascade_exact.py)
-    and solves the same stack as cascade_exact."""
+    """Every cascade is ported now (the name is kept from when the pivoted
+    one raised). fused_cascade=False is the pivoted cascade
+    (wbc/hoqp.py): bit for bit hoqp_solve on the stack, and JAX's
+    hierarchical_wbc_update with its default pivoted cascade on every
+    level by tests/test_torch_kernel_hoqp.py's residual criterion, its
+    objectives within twice JAX's own move under 1e-7 dust on the stack
+    (four draws) plus 0.2 max(|o|, 1) + 0.6, and the torques within twice
+    JAX's own torque move plus 0.1 Nm (measured 0.66 Nm stance, 0.09 Nm
+    trot, against JAX's dust moves of 0.90 / 2.2 Nm; on trot the level-0
+    violation alone ranges 0.0-4.1 over JAX's own dust draws: these gains
+    make a flatter optimum than tests/test_torch_qp.py's stacks). "xla"
+    is cascade_exact on the
+    stack. A loop built with LoopConfig(fused_wbc=False) ticks through the
+    pivoted cascade: 3 ticks from the standing spawn against the same loop
+    with JAX's hoqp_solve as its cascade, within twice that loop's own
+    spread under 1e-7 dust on q plus tests/test_torch_loop.py's floors
+    (q 1e-4, v 1e-3, torques 0.1 Nm, forces 1 N)."""
+    import jax
+    from qm_control_tpu.wbc.hoqp import hoqp_solve as j_hoqp
+    from qm_control_tpu.wbc.tasks import Task as JTask
     from qm_control_tpu_torch.config import QmConfig as TQmConfig
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
     from qm_control_tpu_torch.kernels.cascade_exact import cascade_exact
     from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
-    _, tm, _, ti, x, tgains, _ = setup
+    from qm_control_tpu_torch.wbc.hoqp import hoqp_solve
+    from qm_control_tpu_torch.wbc.tasks import recover_torques
+    jm, tm, ji, ti, x, tgains, _ = setup
     tau_max = torch.as_tensor(tm.joint_effort, dtype=torch.float32)
-    args = [torch.as_tensor(np.asarray(a))
-            for a in _args(x, np.ones(4, np.float32),
-                           np.zeros(24, np.float32))]
-    with pytest.raises(NotImplementedError):
-        t_update(tm, ti, tgains, tau_max, *args, fused_cascade=False)
-    res = t_update(tm, ti, tgains, tau_max, *args, fused_cascade="xla")
-    _, stack = wbc_stack(tm, ti, tgains, tau_max, *args)
-    assert torch.equal(res.x_opt, cascade_exact(*stack))
-    loop = ControlLoop(tm, ti, TQmConfig(), LoopConfig(fused_wbc=False),
+    from test_torch_kernel_hoqp import _objectives, _residuals_ok
+    jgains = dataclasses.replace(JGains(), arm_settling_time=0.0)
+    jpivot = jax.jit(lambda *a: j_update(
+        jm, ji, jgains, jnp.asarray(jm.joint_effort, jnp.float32), *a))
+    j_cascade = jax.jit(lambda ts: j_hoqp(ts))
+    rng = np.random.default_rng(0)
+    for case in CASES:
+        flags, vq, _ = CASES[case]
+        np_args = _args(x, flags, vq)
+        args = [torch.as_tensor(np.asarray(a)) for a in np_args]
+        res = t_update(tm, ti, tgains, tau_max, *args, fused_cascade=False)
+        m_, stack = wbc_stack(tm, ti, tgains, tau_max, *args)
+        assert torch.equal(res.x_opt, hoqp_solve(list(stack)))
+        rj = jpivot(*[jnp.asarray(a) for a in np_args])
+        s64 = [tuple(a.numpy().astype(np.float64) for a in t) for t in stack]
+        xt, xj = (np.asarray(a, np.float64) for a in (res.x_opt, rj.x_opt))
+        assert _residuals_ok(s64, xt, xj)
+        ot, oj = _objectives(s64, xt), _objectives(s64, xj)
+        spread, o_spread = 0.0, np.zeros_like(oj)
+        for _ in range(4):
+            xd = np.asarray(j_cascade([JTask(*[jnp.asarray(a.numpy() * (
+                1.0 + 1e-7 * rng.standard_normal(a.shape)), jnp.float32)
+                for a in t]) for t in stack]))
+            spread = max(spread, float((recover_torques(
+                m_, torch.from_numpy(xd)) - torch.from_numpy(
+                    np.asarray(rj.torques))).abs().max()))
+            o_spread = np.maximum(o_spread, np.abs(
+                _objectives(s64, xd.astype(np.float64)) - oj))
+        assert (np.abs(ot - oj) <= 2.0 * o_spread + 0.2 * np.maximum(
+            np.abs(oj), 1.0) + 0.6).all(), (case, ot, oj, o_spread)
+        err = np.abs(res.torques.numpy() - np.asarray(rj.torques)).max()
+        assert err <= 2.0 * spread + 0.1, (case, err, spread)
+        xla = t_update(tm, ti, tgains, tau_max, *args, fused_cascade="xla")
+        assert torch.equal(xla.x_opt, cascade_exact(*stack))
+
+    def jax_pivoted(t0, t1, t2):
+        return torch.from_numpy(np.asarray(j_cascade(
+            [JTask(*[jnp.asarray(a.numpy()) for a in t])
+             for t in (t0, t1, t2)])))
+    cfg = TQmConfig().with_(wbc=tgains)
+    loop = ControlLoop(tm, ti, cfg, LoopConfig(fused_wbc=False),
                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        loop.run_ticks(loop.init_carry(np.asarray(x[6:30])), 1)
+    ref_loop = ControlLoop(tm, ti, cfg, LoopConfig(), device="cpu",
+                           cascade=jax_pivoted)
+    carry = loop.init_carry(default_q(base_pos=(0, 0, 0.38)))
+
+    def outs(lp, c):
+        c1, o = lp.run_ticks(c, 3)
+        return [a.numpy() for a in (c1.plant.q, c1.plant.v, o.torques[-1],
+                                    o.forces[-1])]
+    before = K.launch_count
+    port = outs(loop, carry)
+    assert K.launch_count == before
+    ref = outs(ref_loop, carry)
+    band = np.zeros(4)
+    for _ in range(2):
+        qd = carry.plant.q * (1.0 + 1e-7 * torch.as_tensor(
+            rng.standard_normal(24), dtype=torch.float32))
+        dusted = outs(ref_loop, carry._replace(
+            plant=carry.plant._replace(q=qd)))
+        band = np.maximum(band, [np.abs(a - b).max()
+                                 for a, b in zip(ref, dusted)])
+    gaps = np.array([np.abs(a - b).max() for a, b in zip(ref, port)])
+    assert (gaps <= 2.0 * band + np.array([1e-4, 1e-3, 0.1, 1.0])).all(), (
+        gaps, band)
+
+
+def test_task_helpers_match_jax(setup):
+    """tasks.compute_measured, compute_desired and empty_task against the
+    JAX package's on a perturbed trot state (rtol 1e-4 / atol 1e-3 as the
+    stacks above; measured up to 3.1e-5 on h and base_acc)."""
+    from qm_control_tpu.wbc import tasks as JT
+    from qm_control_tpu_torch.wbc import tasks as TT
+    jm, tm, ji, ti, x, _, _ = setup
+    rng = np.random.default_rng(0)
+    xs = x.copy()
+    xs[:6] = 0.1 * rng.standard_normal(6)
+    u, ul = (rng.standard_normal(30).astype(np.float32) for _ in range(2))
+    q = (x[6:30] + 0.01 * rng.standard_normal(24)).astype(np.float32)
+    v = (0.1 * rng.standard_normal(24)).astype(np.float32)
+    fl = np.array([1., 0., 0., 1.], np.float32)
+    pairs = [(JT.compute_desired(jm, ji, *map(jnp.asarray, (xs, u, ul)),
+                                 jnp.float32(0.002)),
+              TT.compute_desired(tm, ti, *map(torch.from_numpy, (xs, u, ul)),
+                                 torch.tensor(0.002))),
+             (JT.compute_measured(jm, *map(jnp.asarray, (q, v, fl))),
+              TT.compute_measured(tm, *map(torch.from_numpy, (q, v, fl))))]
+    for jr, tr in pairs:
+        for a, b in zip(jr, tr):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-4,
+                                       atol=1e-3)
+    e = TT.empty_task()
+    assert [tuple(a.shape) for a in e] == [(0, 36), (0,), (0, 36), (0,)]
