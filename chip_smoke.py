@@ -6,7 +6,8 @@
 Phases (each fails loudly; the last stdout line is printed only when all
 of them passed; each prints its wall time):
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build K1 (kernels/csrc/hoqp_fused.cu) with nvcc for sm_90a;
+  2. build K1 (kernels/csrc/hoqp_fused.cu) with nvcc for sm_90a, and the
+     native host-runtime library (native/csrc/qm_native.cpp) with g++;
   3. K1 cold and warm against its plain PyTorch version on the card: 16
      seeded random cascades (as drawn and with feasible bounds) and the
      real stance/trot WBC stacks built by the port's wbc/tasks.py on the
@@ -73,7 +74,29 @@ of them passed; each prints its wall time):
      256 blocks): per gait the median torque gap within the JAX package's
      cross-cascade bounds (1.0 Nm stance, 2.0 Nm trot,
      tests/test_kernels.py) and each level's mean residual within 1.05x;
-  5. times with CUDA events after warm-up: ms per tick, K1 ms per launch
+  4g. the hardware seam at full width in a child process beside 4b-4d
+     (runtime/hw.py over SimHardware with 2 plant substeps per 500 Hz
+     tick, the spawn at 0.38 m, the hold target, stance, N = 67):
+     (a) HardwareLoop(async_mpc=False) for 100 ticks (20 MPC periods):
+     one K1 launch per tick (count reset before, read after), every
+     torque finite and within model.joint_effort + 1e-3, the base height
+     within 0.06 m of 0.38 (tests/test_hw.py's bounds), and the final
+     base height and the largest |tau| within the JAX package's run of
+     the call (the larger of 25 % and that run's spread under 1e-7 dust
+     on q0, docs/hw_reference_jax.py); (b) HardwareLoop(async_mpc=True,
+     mpc_freq=100): start() receives the initial policy, 4 baseline
+     ticks, run_paced(50) at 500 Hz, 5 ticks after stop(): the worker's
+     solve count grows in the paced window and the worker thread
+     launches no K1, the control thread launches one per tick, torques
+     finite and within the limits, the robot up, the paced window within
+     tests/test_hw.py's self-calibrating budget (50 (1/500 + 3 tick) +
+     1 s), stop() raises nothing and the thread is gone; printed, not
+     gated: the tick ms with the worker stopped and with it solving, the
+     worker's solves per second, the overruns, whether SCHED_FIFO was
+     granted; (c) imu_estimator_update on the card against the CPU on the
+     same inputs, within 1e-5;
+  5. times with CUDA events after warm-up: ms per tick (and by
+     utils.profiling.chained_latency), K1 ms per launch
      (cold, and warm from a warm buffer; and on the MPC-only stack), the
      plain version's ms, and the bound of K1's work on an H100; the
      pivoted cascade's ms per call; the parallel Riccati
@@ -123,8 +146,8 @@ Without a CUDA device it exits non-zero before printing any result.
     python3 chip_smoke.py --mpc-batch B
 
 runs phase 6 alone at B scenarios (the B = 1024 and 4096 probes);
-`--main-path`, `--experiment NAME` and `--mpc-variant` are phases 4b, 4c
-and 4d alone.
+`--main-path`, `--experiment NAME`, `--mpc-variant` and `--hardware` are
+phases 4b, 4c, 4d and 4g alone.
 """
 import json
 import os
@@ -187,6 +210,10 @@ JAX_EXPERIMENTS = {
                                             0.003725290298461914),
                     arm_track_err_max_rad=(0.0021691322326660156,
                                            4.76837158203125e-07)),
+    # phase 4g(a) (docs/hw_reference_jax.py, draw 0 and draws 1-3)
+    "hardware": dict(base_height_final=(0.3780054748058319,
+                                        8.544325828552246e-05),
+                     tau_abs_max=(30.890445709228516, 6.137222290039062)),
 }
 # phase 4d: the MPC-only variant at full width, cut in depth (JAX default
 # 2.0 s and 25 warm-up solves). f32 time lands just under 0.75 s after
@@ -197,6 +224,8 @@ VARIANT = dict(duration=0.75, transient=0.5, warmup=5)
 VARIANT_BOUNDS = dict(ee_pos_err_max_mm=120.0, base_height_err_max_mm=60.0,
                       arm_track_err_max_rad=0.2)
 MPC_K1_CYCLES = 10          # phase 4e
+HW_TICKS = 100              # phase 4g: 20 MPC periods at 500 Hz
+HW_PACED = 50               # run_paced's ticks in 4g(b)
 CHILD_TIMEOUT_S = 780       # phases 4b-4d, counted from the end of 4f
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 256                 # phases 3b, 6-8: bench.py's batch
@@ -576,6 +605,201 @@ def _check_variant(r):
     if not ok:
         raise AssertionError("phase 4d: the MPC-only variant misses its "
                              "gate")
+
+
+def hardware_child():
+    """Phase 4g, run as `chip_smoke.py --hardware` in a child process: the
+    hardware seam at full width, (a) inline, (b) with the asynchronous MPC
+    worker, (c) the IMU estimator on the card against the CPU. Applies the
+    phase's gates, then prints one JSON line {"hardware": ...}."""
+    import threading
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from qm_control_tpu_torch import native
+    from qm_control_tpu_torch.experiments import (_default_cfg,
+                                                  _standing_setup)
+    from qm_control_tpu_torch.gaits.library import GAIT_LIBRARY, GaitSchedule
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.ocp.reference import target_from_knots
+    from qm_control_tpu_torch.runtime import estimator as E
+    from qm_control_tpu_torch.runtime.hw import HardwareLoop, SimHardware
+    K.build()                      # the parent built both: found on disk
+    native.load()
+    dev = torch.device("cuda")
+    cfg = _default_cfg()           # N = 67, 1 iteration, settling 0
+    model, info, q0, s = _standing_setup(cfg)
+    target = target_from_knots([0.0, 3.0], [s, s], device=dev)
+    ms = GaitSchedule(GAIT_LIBRARY["stance"]).mode_schedule(0.0, 3.0,
+                                                           device=dev)
+    lim = np.asarray(model.joint_effort) + 1e-3
+    out = {}
+
+    def fresh():
+        return dict(ms=[], ok=True, tau=0.0, dz=0.0)
+
+    def recorded(loop, hw):
+        """loop.tick, recording each tick's host ms, |tau| max, limits
+        and base height into rec["now"] (run_paced calls it too)."""
+        inner, rec = loop.tick, {"now": fresh()}
+
+        def tick(*args):
+            t0 = time.perf_counter()
+            res, x = inner(*args)
+            tau = res.torques.cpu().numpy()
+            r = rec["now"]
+            r["ms"].append(1e3 * (time.perf_counter() - t0))
+            r["ok"] &= bool(np.isfinite(tau).all()
+                            and (np.abs(tau) <= lim).all())
+            r["tau"] = max(r["tau"], float(np.abs(tau).max()))
+            r["dz"] = max(r["dz"], abs(float(hw.state.q[2]) - 0.38))
+            return res, x
+        loop.tick = tick
+        return rec
+
+    def run(loop, hw, n):
+        for _ in range(n):
+            loop.tick(target, ms, hw.state.q[:3], hw.state.v[:3])
+
+    # (a) inline: a solve on every 5th tick, the WBC (K1) on every tick
+    hw = SimHardware(model, q0, substeps=2, device=dev)
+    loop = HardwareLoop(model, info, cfg, hw, async_mpc=False, device=dev)
+    rec = recorded(loop, hw)
+    torch.cuda.synchronize()
+    K.launch_count = 0
+    t0 = time.perf_counter()
+    run(loop, hw, HW_TICKS)
+    torch.cuda.synchronize()
+    a = rec["now"]
+    per = loop.ticks_per_mpc
+    out["inline"] = dict(
+        ticks=HW_TICKS, launches=K.launch_count,
+        wall_s=time.perf_counter() - t0, in_limits=a["ok"],
+        tau_abs_max=a["tau"], base_height_dev_max=a["dz"],
+        base_height_final=float(hw.state.q[2]),
+        tick_ms_median=statistics.median(
+            [m for i, m in enumerate(a["ms"]) if i % per]),
+        solve_tick_ms_median=statistics.median(a["ms"][::per]))
+
+    # (b) the asynchronous MPC worker, paced by the native RatePacer
+    hw = SimHardware(model, q0, substeps=2, device=dev)
+    loop = HardwareLoop(model, info, cfg, hw, async_mpc=True, mpc_freq=100.0,
+                        device=dev)
+    rec = recorded(loop, hw)
+    torch.cuda.synchronize()
+    K.launch_count = 0
+    K.launches_by_thread.clear()
+    t0 = time.perf_counter()
+    loop.start(target, ms, hw.state.q[:3], hw.state.v[:3])
+    start_s = time.perf_counter() - t0
+    worker = loop.mrt._thread
+    first = rec["now"]
+    run(loop, hw, 1)                      # first use of the async tick
+    rec["now"] = base = fresh()
+    run(loop, hw, 3)
+    tick_cost = statistics.mean(base["ms"]) / 1e3
+    granted = []                          # probed in a thread of its own
+    probe = threading.Thread(target=lambda: granted.append(
+        native.set_realtime_priority(50)))
+    probe.start()
+    probe.join()
+    n0 = loop.mrt.solve_count
+    rec["now"] = paced = fresh()
+    t0 = time.perf_counter()
+    overruns = loop.run_paced(HW_PACED, target, ms, lambda: hw.state.q[:3],
+                              lambda: hw.state.v[:3])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    solves = loop.mrt.solve_count - n0
+    stop_error = None
+    try:
+        loop.stop()
+    except Exception as e:                # reported, and gated below
+        stop_error = repr(e)
+    rec["now"] = stopped = fresh()
+    run(loop, hw, 5)                      # the worker stopped: ticks alone
+    segs = (first, base, paced, stopped)
+    torch.cuda.synchronize()
+    control = K.launches_by_thread.get(threading.get_ident(), 0)
+    out["async"] = dict(
+        start_s=start_s, baseline_tick_ms=1e3 * tick_cost,
+        paced_ticks=HW_PACED, paced_s=elapsed,
+        paced_tick_ms=statistics.median(paced["ms"]),
+        budget_s=HW_PACED * (1.0 / 500.0 + 3.0 * tick_cost) + 1.0,
+        idle_tick_ms=statistics.median(stopped["ms"]),
+        solves_in_window=solves, solves_per_s=solves / elapsed,
+        overruns=overruns, sched_fifo=bool(granted[0]),
+        control_ticks=1 + 3 + HW_PACED + 5, control_launches=control,
+        worker_launches=K.launches_by_thread.get(worker.ident, 0),
+        launches=K.launch_count,
+        in_limits=all(g["ok"] for g in segs),
+        tau_abs_max=max(g["tau"] for g in segs),
+        base_height_dev_max=max(g["dz"] for g in segs),
+        stop_error=stop_error, worker_alive=worker.is_alive())
+
+    # (c) the IMU estimator, card against CPU, on three perturbed spawns
+    rng = np.random.default_rng(0)
+    est = {d: E.init_imu_estimator(device=d) for d in ("cuda", "cpu")}
+    err = 0.0
+    for _ in range(3):
+        q = np.asarray(q0, np.float32) + rng.uniform(-0.05, 0.05, 24).astype(
+            np.float32)
+        v = (0.3 * rng.standard_normal(24)).astype(np.float32)
+        flags = np.ones(4, np.float32)
+        outs = {}
+        for d in ("cuda", "cpu"):
+            qt, vt = (torch.as_tensor(a, device=d) for a in (q, v))
+            quat, gyro = E.imu_from_plant(model, qt, vt)
+            rbd, mode, est[d] = E.imu_estimator_update(
+                model, est[d], quat, gyro, qt[6:], vt[6:], qt[:3], vt[:3],
+                torch.as_tensor(flags, device=d))
+            outs[d] = [rbd.cpu(), est[d].zyx_offset.cpu(), mode.cpu()]
+        err = max(err, *[float((a.double() - b.double()).abs().max())
+                         for a, b in zip(outs["cuda"], outs["cpu"])])
+    out["estimator_err"] = err
+    _check_hardware(out)
+    print(json.dumps({"hardware": out}))
+    return 0
+
+
+def _check_hardware(r):
+    """Phase 4g's gates on its result."""
+    a, b = r["inline"], r["async"]
+    print(f"[4g inline] HardwareLoop(async_mpc=False) {a['ticks']} ticks in "
+          f"{a['wall_s']:.1f} s: K1 launches {a['launches']}, torques in "
+          f"limits {a['in_limits']}, max|tau| {a['tau_abs_max']:.3f} Nm, "
+          f"base height final {a['base_height_final']:.5f} m, max|z - 0.38| "
+          f"{a['base_height_dev_max']:.5f} m; tick {a['tick_ms_median']:.1f} "
+          f"ms (median), with a solve {a['solve_tick_ms_median']:.1f} ms")
+    ok = (a["launches"] == a["ticks"] and a["in_limits"]
+          and a["base_height_dev_max"] < 0.06)
+    for key in JAX_EXPERIMENTS["hardware"]:
+        ok &= _within_jax("hardware", key, a[key], tag="4g")
+    print(f"[4g async] start() {b['start_s']:.1f} s; tick with the worker "
+          f"solving {b['baseline_tick_ms']:.1f} ms (3 baseline ticks), "
+          f"{b['paced_tick_ms']:.1f} ms (run_paced({b['paced_ticks']}), "
+          f"{b['paced_s']:.2f} s, budget {b['budget_s']:.2f} s); with the "
+          f"worker stopped {b['idle_tick_ms']:.1f} ms; worker "
+          f"{b['solves_in_window']} solves in the window "
+          f"({b['solves_per_s']:.3f} solves/s); overruns {b['overruns']}; "
+          f"SCHED_FIFO granted {b['sched_fifo']}")
+    print(f"[4g async] K1 launches: control thread {b['control_launches']} "
+          f"in {b['control_ticks']} ticks, MPC worker "
+          f"{b['worker_launches']}, all threads {b['launches']}; torques in "
+          f"limits {b['in_limits']}, max|tau| {b['tau_abs_max']:.3f} Nm, "
+          f"max|z - 0.38| {b['base_height_dev_max']:.5f} m; stop() "
+          f"{b['stop_error'] or 'clean'}, worker alive after "
+          f"{b['worker_alive']}")
+    ok &= (b["solves_in_window"] > 0 and b["worker_launches"] == 0
+           and b["control_launches"] == b["control_ticks"] == b["launches"]
+           and b["in_limits"] and b["base_height_dev_max"] < 0.06
+           and b["paced_s"] < b["budget_s"] and b["stop_error"] is None
+           and not b["worker_alive"])
+    print(f"[4g estimator] imu_estimator_update card vs CPU: max|d| "
+          f"{r['estimator_err']:.3e} (bound 1e-5)")
+    ok &= r["estimator_err"] <= 1e-5
+    if not ok:
+        raise AssertionError("phase 4g: the hardware seam misses its gate")
 
 
 def mpc_cycle_k1(model, info, dev, cfg):
@@ -1429,13 +1653,21 @@ def main():
         if "registers" in line or "spill" in line or "smem" in line:
             print("[build] " + line.strip())
     print(f"[build] dynamic shared memory per block: {K.smem_bytes()} B")
+    from qm_control_tpu_torch import native
+    t0 = time.perf_counter()
+    path = native.build()
+    native.load()
+    print(f"[build] {os.path.relpath(path, ROOT)} in "
+          f"{time.perf_counter() - t0:.1f} s (g++, the port's copy of "
+          f"qm_native.cpp)")
     clock.done("1-2")
 
-    # ---- 4b, 4c and 4d run in child processes beside phases 3-4f --------
+    # ---- 4b, 4c, 4d and 4g run in child processes beside phases 3-4f -----
     # (the host is the bottleneck of every one of them); two 4c children
     # at a time on a host with few cores
     cores = os.cpu_count() or 1
-    jobs = [("4b", ["--main-path"]), ("4d", ["--mpc-variant"])] + [
+    jobs = [("4b", ["--main-path"]), ("4d", ["--mpc-variant"]),
+            ("4g", ["--hardware"])] + [
         (f"4c-{n}", ["--experiment", n]) for n in EXPERIMENTS]
     width = len(jobs) if cores >= 8 else 3
     print(f"[host] {cores} CPU cores: {len(jobs)} child processes, "
@@ -1728,10 +1960,11 @@ def _phases(smi, clock, children):
     hoqp_batched_ms = _batched_hoqp_check(model, info, dev, cfg)
     clock.done("4f")
 
-    # ---- 4b, 4c and 4d (the child processes) --------------------------------
+    # ---- 4b, 4c, 4d and 4g (the child processes) ---------------------------
     ended = children.join(timeout=CHILD_TIMEOUT_S)
     results = {}
-    keys = {"4b": '{"main_path"', "4d": '{"mpc_variant"'}
+    keys = {"4b": '{"main_path"', "4d": '{"mpc_variant"',
+            "4g": '{"hardware"'}
     for name, (rc, lines, wall) in ended.items():
         key = keys.get(name, '{"experiment"')
         for line in lines:
@@ -1744,6 +1977,7 @@ def _phases(smi, clock, children):
     hold = results.pop("4b")["main_path"]
     variant = results.pop("4d")["mpc_variant"]
     _check_variant(variant)
+    hw = results.pop("4g")["hardware"]    # gated in its child
     print(f"[main] standing_ee_hold({', '.join(f'{k}={v!r}' for k, v in HOLD.items())}"
           f", device='cuda'): {hold['wall_s']:.1f} s wall, K1 launches "
           f"{hold['launches']} in {HOLD_TICKS} ticks, safe {hold['safe']}, "
@@ -1776,6 +2010,14 @@ def _phases(smi, clock, children):
 
     period()
     tick_ms = _cuda_ms(period, reps=9) / 10.0
+    # the same tick by differential chaining (utils/profiling.py: chains
+    # of 2 and 12 ticks, CUDA events, best of 2)
+    from qm_control_tpu_torch.utils.profiling import chained_latency
+
+    def one_tick(c):
+        return loop.run_ticks(c, 1)[0]
+    one_tick.init = lambda: state["carry"]
+    chained_tick_ms = 1e3 * chained_latency(one_tick, k1=2, k2=12, reps=2)
     (_, st), _ = real["stance"]
     K.fused_hoqp(*st)
     k1_ms = _cuda_ms(lambda: K.fused_hoqp(*st), reps=9, inner=20)
@@ -1795,7 +2037,8 @@ def _phases(smi, clock, children):
     t_wbytes = (nbytes + 4 * wk.numel()) / H100_BYTES_PER_S
     warm_bound_ms = 1e3 * max(t_ops, t_wbytes)
     print(f"[time] {tick_ms:.3f} ms per control tick (median of 9 MPC "
-          f"periods of 10 ticks, K1 included), K1 {1e3 * k1_ms:.1f} us per "
+          f"periods of 10 ticks, K1 included; {chained_tick_ms:.3f} ms by "
+          f"chained_latency), K1 {1e3 * k1_ms:.1f} us per "
           f"launch (median), plain cascade on the card {plain_ms:.1f} ms, "
           f"K1 launches per tick {launches / HOLD_TICKS:.0f}")
     print(f"[time] K1 work at shapes {ma0}/{nv}/{st[1].A.shape[0]}/"
@@ -1985,10 +2228,17 @@ def _phases(smi, clock, children):
              **{f"4c {n}": v for n, v in exp_launches.items()},
              "4d mpc_variant_standing": variant["launches"],
              "4e make_mpc_cycle(fused_wbc=True)": mpc_k1_launches,
-             "4f LoopConfig(fused_wbc=False)": pivot_launches}
+             "4f LoopConfig(fused_wbc=False)": pivot_launches,
+             "4g HardwareLoop inline": hw["inline"]["launches"],
+             "4g HardwareLoop async, control thread":
+                 hw["async"]["control_launches"],
+             "4g HardwareLoop async, MPC worker thread":
+                 hw["async"]["worker_launches"]}
     print(f"[kernels] K1-cold (hoqp_fused.cu, warm pointer null): launches "
           f"per path {paths} (4d and 4f run the pivoted cascade, as the JAX "
-          f"package does; 4e: {mpc_k1_ticks} ticks on the MPC-only stack); "
+          f"package does; 4e: {mpc_k1_ticks} ticks on the MPC-only stack; "
+          f"4g: {hw['inline']['ticks']} inline ticks, "
+          f"{hw['async']['control_ticks']} async control ticks); "
           f"K1-warm (the same kernel with a warm buffer): "
           f"no path launches it, timed alone in phase 5; K1 with grid = "
           f"{BATCH}: {b_launches} launches of {b_blocks} blocks in phase 7's "
@@ -2014,6 +2264,7 @@ def _phases(smi, clock, children):
              ms_by_batch={str(b): v[0] for b, v in k1_times.items()},
              bound_ms_by_batch={str(b): v[1] for b, v in k1_times.items()})],
         "mpc_solve_ms": mpc_ms, "cycle_ms": cycle_ms, "tick_ms": tick_ms,
+        "chained_tick_ms": chained_tick_ms, "hardware": hw,
         "main_ticks": HOLD_TICKS, "experiments": exp_walls,
         "mpc_variant": variant, "hoqp_solve": hoqp_prof,
         "hoqp_batched_ms": hoqp_batched_ms,
@@ -2053,6 +2304,8 @@ if __name__ == "__main__":
         sys.exit(experiment_child(sys.argv[2]))
     if sys.argv[1:] == ["--mpc-variant"]:
         sys.exit(variant_child())
+    if sys.argv[1:] == ["--hardware"]:
+        sys.exit(hardware_child())
     if sys.argv[1:2] == ["--mpc-batch"]:
         sys.exit(mpc_batch_probe(int(sys.argv[2])))
     sys.exit(main())

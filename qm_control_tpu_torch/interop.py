@@ -14,6 +14,7 @@ from .kernels.hoqp_fused import WARM_ROWS, warm_width
 from .mpc.mpc import MpcPolicy
 from .ocp.reference import TargetTrajectory
 from .parallel.batch import BatchScenario
+from .runtime.estimator import ImuEstimatorState
 from .runtime.loop import CycleCarry
 from .runtime.plant import HybridCommand, PlantState
 
@@ -121,3 +122,11 @@ def batch_scenario_from_numpy(t, x, target_times, target_states,
         target=TargetTrajectory(_t(target_times, dev), _t(target_states, dev)),
         ms=ModeSchedule(_t(event_times, dev), _t(modes, dev, torch.int32)),
         W_warm=_t(W_warm, dev), X_warm=_t(X_warm, dev))
+
+
+def imu_estimator_state_from_numpy(zyx_offset, initialized,
+                                   device="cuda") -> ImuEstimatorState:
+    """ImuEstimatorState from the numpy leaves of a JAX ImuEstimatorState
+    (the latched (3,) ZYX offset and the 0/1 scalar)."""
+    dev = resolve_device(device)
+    return ImuEstimatorState(_t(zyx_offset, dev), _t(initialized, dev))

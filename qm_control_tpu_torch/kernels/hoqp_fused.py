@@ -55,9 +55,11 @@ WARM_ROWS = 9
 
 # launches of the CUDA kernel since the last reset, and the cascades they
 # solved (a launch with grid = B adds B); the plain version on CPU tensors
-# counts in neither
+# counts in neither; launches_by_thread splits launch_count by the
+# launching thread's ident (the hardware loop's MPC worker must launch none)
 launch_count = 0
 block_count = 0
+launches_by_thread = {}
 
 
 # ---------------------------------------------------------------------------
@@ -482,6 +484,8 @@ def _launch(A0, b0, D, f, A1, b1, A2, b2, warm, qp_iters):
         raise RuntimeError(f"hoqp_fused kernel launch failed: cudaError {err}")
     launch_count += 1
     block_count += B
+    tid = threading.get_ident()
+    launches_by_thread[tid] = launches_by_thread.get(tid, 0) + 1
     return x, w_out
 
 

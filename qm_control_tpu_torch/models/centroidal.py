@@ -6,10 +6,11 @@ State / input layout as in the JAX module:
                q_joints(18) ]
   u in R^30 = [ contact forces 4x3 (LF, RF, LH, RH, world) ; qdot_j(18) ]
 
-`linearize_flow_map` is not ported (the MPC linearizes through
-ocp/linearize.py).
+The MPC linearizes through ocp/linearize.py; `linearize_flow_map` is the
+autodiff Jacobian pair of the JAX module.
 """
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -17,6 +18,7 @@ import torch
 from . import dynamics as D
 from . import kinematics as K
 from ._const import const
+from ._fwd import jacfwd
 from .rotations import euler_zyx_rate_to_omega_world_matrix, euler_zyx_to_R
 from .smallmat import mm3, mv3
 from .spec import NQ, NUM_CONTACTS, NUM_JOINTS, RobotModel, default_q
@@ -92,6 +94,17 @@ def flow_map(model: RobotModel, info: CentroidalInfo, x, u, ee_wrench=None):
     return torch.cat([h_dot_lin, h_dot_ang, base_dot, v_j])
 
 
+def linearize_flow_map(model: RobotModel, info: CentroidalInfo, x, u):
+    """A = df/dx (30x30), B = df/du (30x30) by forward-mode autodiff
+    (reference QMDynamicsAD::linearApproximation). torch.func's forward
+    mode may widen tangents to float64 (models/_const.scalar), so the
+    Jacobians are cast to x's dtype."""
+    f = partial(flow_map, model, info)
+    A = jacfwd(f, argnums=0)(x, u)
+    B = jacfwd(f, argnums=1)(x, u)
+    return A.to(x.dtype), B.to(x.dtype)
+
+
 def weight_compensating_input(info: CentroidalInfo, contact_flags):
     """Gravity-distributing input for the given contact flags (reference
     OCS2 weightCompensatingInput, QMInitializer.cpp:35-40)."""
@@ -117,3 +130,17 @@ def centroidal_state_from_rbd(model: RobotModel, info: CentroidalInfo, q, v):
     I_w = mm3(mm3(R, const(info.I_com_base, q)), R.transpose(-1, -2))
     l_norm = mv3(I_w, omega) / info.mass
     return torch.cat([v_com, l_norm, q])
+
+
+def rbd_velocity_from_centroidal(info: CentroidalInfo, x, v_joints=None):
+    """v(24) from centroidal state (joint rates must be supplied or zero)."""
+    if v_joints is None:
+        v_joints = x.new_zeros(NUM_JOINTS)
+    return torch.cat([base_velocity_from_momentum(info, x), v_joints])
+
+
+def full_centroidal_state_from_rbd(model: RobotModel, q, v):
+    """x(30) using the exact (full) centroidal momentum matrix A(q) v: the
+    FullCentroidalDynamics variant (centroidalModelType 0) mapping."""
+    h_norm = (D.centroidal_momentum_matrix(model, q) @ v) / model.total_mass
+    return torch.cat([h_norm, q])

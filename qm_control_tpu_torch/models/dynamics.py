@@ -15,9 +15,9 @@ from functools import partial
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, jvp
 
 from ._const import const
+from ._fwd import jacfwd, jvp
 from .kinematics import all_body_jacobians, fk, frame_kinematics, _static
 from .rotations import skew
 from .spec import RobotModel
@@ -147,3 +147,12 @@ def rbd_suite(model: RobotModel, q) -> RbdSuite:
         model, q, cache=cache)
     return RbdSuite(M=M, A=A, Jc=Jc, base_J=base_J, ee_J=ee_J,
                     feet_pos=feet_pos, ee_pos=ee_pos, ee_R=ee_R, gvec=gvec)
+
+
+def forward_dynamics(model: RobotModel, q, v, tau, J_c=None, f_c=None):
+    """v_dot = M^{-1} (tau + J_c^T f_c - h). tau is the full (nq,) force."""
+    rhs = tau - nonlinear_effects(model, q, v)
+    if J_c is not None:
+        rhs = rhs + J_c.T @ f_c
+    # solve_ex: no host-side singularity check
+    return torch.linalg.solve_ex(mass_matrix(model, q), rhs)[0]

@@ -7,22 +7,24 @@ so dJ/dt = jvp(J, q, v) exactly (torch.func.jvp here).
 
 Functions take the static RobotModel and a (24,) q; they are functional
 (no in-place writes, no host reads), so torch.func.vmap/jacfwd/jvp apply.
-The MPC uses the scalar-structured chains of models/chainfk.py; the JAX
-module's generic `leg_chain_fk`, `foot_kinematics` and `ee_chain_pose`
-are not ported.
+The MPC uses the scalar-structured chains of models/chainfk.py; the
+generic lane-parallel chains `leg_chain_fk`, `foot_kinematics` and
+`ee_chain_pose`, and `fk_unrolled`, are the JAX module's as well.
 """
 from functools import partial
 
 import numpy as np
 import torch
-from torch.func import jvp
 
 from ._const import const
+from ._fwd import jvp
 from .rotations import axis_angle_to_R
 from .smallmat import mm3, mv3
-from .spec import CONTACT_FRAMES, EE_FRAME, RobotModel
+from .spec import (CONTACT_FRAMES, CONTACT_LEG_JOINTS, EE_FRAME, NUM_BASE,
+                   NUM_LEG_JOINTS, PRISMATIC, REVOLUTE, RobotModel)
 
 _STATIC = {}
+_EYE3 = np.eye(3)
 
 
 def _static(model: RobotModel):
@@ -95,6 +97,34 @@ def fk(model: RobotModel, q):
     return dict(R=R_w, p=p_w, a=a, o=o)
 
 
+def fk_unrolled(model: RobotModel, q):
+    """Body-by-body FK down the tree (a flat unrolled graph); semantics
+    identical to fk()."""
+    Rs, ps, aw, ow = [], [], [], []
+    for i in range(model.n_bodies):
+        par = int(model.parent[i])
+        if par < 0:
+            Rp, pp = const(_EYE3, q), q.new_zeros(3)
+        else:
+            Rp, pp = Rs[par], ps[par]
+        # constant joint-origin transforms: skip identity composes (common)
+        XR, Xp = model.X_tree_R[i], model.X_tree_p[i]
+        Ro = Rp if np.allclose(XR, _EYE3) else mm3(Rp, const(XR, q))
+        po = pp if np.allclose(Xp, 0.0) else pp + mv3(Rp, const(Xp, q))
+        ax = const(model.axis[i], q)
+        a_world = mv3(Ro, ax)
+        if model.joint_type[i] == PRISMATIC:
+            Ri, pi = Ro, po + a_world * q[i]
+        else:
+            Ri, pi = mm3(Ro, axis_angle_to_R(ax, q[i])), po
+        Rs.append(Ri)
+        ps.append(pi)
+        aw.append(a_world)
+        ow.append(po)
+    return dict(R=torch.stack(Rs), p=torch.stack(ps),
+                a=torch.stack(aw), o=torch.stack(ow))
+
+
 def frame_pose(model: RobotModel, cache, name):
     """(p, R) of a named frame in world."""
     fr = model.frame(name)
@@ -129,6 +159,11 @@ def frame_jacobian_dot(model: RobotModel, q, v, name):
     return jdot
 
 
+def frame_velocity(model: RobotModel, q, v, name):
+    """(6,) world-aligned [linear; angular] velocity of a frame."""
+    return frame_jacobian(model, q, name) @ v
+
+
 def all_body_jacobians(model: RobotModel, cache):
     """(n, 6, nq) Jacobians of every body-frame origin (vectorized)."""
     a, o, p = cache["a"], cache["o"], cache["p"]
@@ -160,6 +195,138 @@ def frame_kinematics(model: RobotModel, q, cache=None):
     ee_J = point_jacobian(model, cache, ee_p, model.frame(EE_FRAME).body)
     return (torch.cat(jc_rows, dim=0), base_J, ee_J,
             torch.stack(feet), ee_p, ee_R)
+
+
+class _LegStatic:
+    """Per-leg chain constants in CONTACT_FRAMES order (LF, RF, LH, RH):
+    the 4 leg chains are structurally identical (HAA, HFE, KFE revolute
+    joints hanging off the base), so FK vectorizes over the leg axis —
+    one lane-parallel chain of depth 3 instead of 12 scalar bodies."""
+
+    def __init__(self, model: RobotModel):
+        XR = np.zeros((4, 3, 3, 3))
+        Xp = np.zeros((4, 3, 3))
+        ax = np.zeros((4, 3, 3))
+        qidx = np.zeros((4, 3), dtype=np.int64)
+        foot_p = np.zeros((4, 3))
+        for f, fname in enumerate(CONTACT_FRAMES):
+            joints = CONTACT_LEG_JOINTS[f]
+            for d, j in enumerate(joints):
+                b = NUM_BASE + j
+                assert model.joint_type[b] == REVOLUTE
+                expect_parent = (NUM_BASE - 1 if d == 0
+                                 else NUM_BASE + joints[d - 1])
+                assert int(model.parent[b]) == expect_parent, (fname, d)
+                XR[f, d] = model.X_tree_R[b]
+                Xp[f, d] = model.X_tree_p[b]
+                ax[f, d] = model.axis[b]
+                qidx[f, d] = b
+            fr = model.frame(fname)
+            assert fr.body == NUM_BASE + joints[2]
+            assert np.allclose(fr.R, np.eye(3))
+            foot_p[f] = fr.p
+        # per depth, contiguous (4, ...) slices: cached once per device
+        self.XR = [XR[:, d].copy() for d in range(3)]
+        self.Xp = [Xp[:, d].copy() for d in range(3)]
+        self.ax = [ax[:, d].copy() for d in range(3)]
+        self.qidx, self.foot_p = qidx.reshape(-1), foot_p
+
+
+class _ArmStatic:
+    """Arm chain constants: base -> 6 arm joints -> EE frame."""
+
+    def __init__(self, model: RobotModel):
+        first = NUM_BASE + NUM_LEG_JOINTS
+        bodies = list(range(first, first + 6))
+        assert int(model.parent[first]) == NUM_BASE - 1
+        for b in bodies[1:]:
+            assert int(model.parent[b]) == b - 1
+        assert all(model.joint_type[b] == REVOLUTE for b in bodies)
+        self.XR = [model.X_tree_R[b].copy() for b in bodies]
+        self.Xp = [model.X_tree_p[b].copy() for b in bodies]
+        self.ax = [model.axis[b].copy() for b in bodies]
+        self.qidx = np.asarray(bodies, dtype=np.int64)
+        fr = model.frame(EE_FRAME)
+        assert fr.body == bodies[-1]
+        self.ee_p, self.ee_R = fr.p, fr.R
+
+
+_CHAIN_STATIC = {}
+
+
+def _chain_static(cls, model: RobotModel):
+    key = (cls, id(model))
+    if key not in _CHAIN_STATIC:
+        _CHAIN_STATIC[key] = (model, cls(model))
+    return _CHAIN_STATIC[key][1]
+
+
+def leg_chain_fk(model: RobotModel, q):
+    """Vectorized FK of the 4 leg chains. Returns (p_feet (4,3), a_w
+    (4,3,3) world joint axes [leg, depth, xyz], o_w (4,3,3) world joint
+    origins, R_base, p_base)."""
+    from .rotations import euler_zyx_to_R
+    st = _chain_static(_LegStatic, model)
+    Rb = euler_zyx_to_R(q[3:6])
+    pb = q[0:3]
+    qleg = q[const(st.qidx, q, torch.int64)].reshape(4, 3)
+    R = Rb.expand(4, 3, 3)
+    p = pb.expand(4, 3)
+    a_ws, o_ws = [], []
+    for d in range(3):
+        axd = const(st.ax[d], q)                        # (4,3)
+        Ro = mm3(R, const(st.XR[d], q))
+        po = p + mv3(R, const(st.Xp[d], q))
+        a_ws.append(mv3(Ro, axd))
+        o_ws.append(po)
+        R = mm3(Ro, axis_angle_to_R(axd, qleg[:, d]))
+        p = po
+    p_feet = p + mv3(R, const(st.foot_p, q))
+    return (p_feet, torch.stack(a_ws, dim=1), torch.stack(o_ws, dim=1),
+            Rb, pb)
+
+
+def foot_kinematics(model: RobotModel, q):
+    """(p_feet (4,3), Jb (4,3,6), Jl (4,3,3)) in one vectorized pass:
+    foot positions plus each foot's linear Jacobian split into base
+    columns and own-leg columns (the only nonzero blocks), in closed
+    form a_k x (p - o_k): no autodiff, no full-tree FK."""
+    p_feet, a_w, o_w, Rb, pb = leg_chain_fk(model, q)
+    # own-leg columns (depth d): a_d x (p_foot - o_d)
+    Jl = torch.stack([torch.linalg.cross(a_w[:, d], p_feet - o_w[:, d])
+                      for d in range(3)], dim=-1)       # (4,3,3)
+    # base columns: 3 prismatic world-aligned (identity), then revolute
+    # z, y, x at the base origin with axes z, Rz y, Rz Ry x
+    cz, sz = torch.cos(q[3]), torch.sin(q[3])
+    cy, sy = torch.cos(q[4]), torch.sin(q[4])
+    zero, one = torch.zeros_like(cz), torch.ones_like(cz)
+    az = torch.stack([zero, zero, one])
+    ay = torch.stack([-sz, cz, zero])
+    ax_ = torch.stack([cz * cy, sz * cy, -sy])
+    r = p_feet - pb                                     # (4,3)
+    rot_cols = torch.stack([torch.linalg.cross(a.expand(4, 3), r)
+                            for a in (az, ay, ax_)], dim=-1)   # (4,3,3)
+    eye = const(_EYE3, q).expand(4, 3, 3)
+    Jb = torch.cat([eye, rot_cols], dim=-1)             # (4,3,6)
+    return p_feet, Jb, Jl
+
+
+def ee_chain_pose(model: RobotModel, q):
+    """(p_ee, R_ee) via the base -> arm chain only (a flat unrolled
+    depth-6 chain; the feet do not affect the EE) (reference: OCS2
+    PinocchioEndEffectorKinematicsCppAd, QMInterface.cpp:363-379)."""
+    from .rotations import euler_zyx_to_R
+    st = _chain_static(_ArmStatic, model)
+    R = euler_zyx_to_R(q[3:6])
+    p = q[0:3]
+    qa = q[const(st.qidx, q, torch.int64)]
+    for d in range(6):
+        Ro = mm3(R, const(st.XR[d], q))
+        p = p + mv3(R, const(st.Xp[d], q))
+        R = mm3(Ro, axis_angle_to_R(const(st.ax[d], q), qa[d]))
+    p_ee = p if np.allclose(st.ee_p, 0.0) else p + mv3(R, const(st.ee_p, q))
+    R_ee = R if np.allclose(st.ee_R, np.eye(3)) else mm3(R, const(st.ee_R, q))
+    return p_ee, R_ee
 
 
 def contact_positions(model: RobotModel, q):

@@ -27,6 +27,24 @@ def unskew(S):
     return torch.stack([S[..., 2, 1], S[..., 0, 2], S[..., 1, 0]], dim=-1)
 
 
+def rot_x(a):
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    return _stack_rows([[o, z, z], [z, c, -s], [z, s, c]])
+
+
+def rot_y(a):
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    return _stack_rows([[c, z, s], [z, o, z], [-s, z, c]])
+
+
+def rot_z(a):
+    c, s = torch.cos(a), torch.sin(a)
+    o, z = torch.ones_like(a), torch.zeros_like(a)
+    return _stack_rows([[c, -s, z], [s, c, z], [z, z, o]])
+
+
 def axis_angle_to_R(axis, angle):
     """Rodrigues formula for unit axes, written out elementwise."""
     ax, ay, az = axis[..., 0], axis[..., 1], axis[..., 2]
@@ -48,6 +66,15 @@ def euler_zyx_to_R(zyx):
         [cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx],
         [sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx],
         [-sy, cy * sx, cy * cx]])
+
+
+def R_to_euler_zyx(R):
+    """Inverse of euler_zyx_to_R (pitch in (-pi/2, pi/2))."""
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    pitch = torch.atan2(-R[..., 2, 0],
+                        torch.sqrt(R[..., 2, 1] ** 2 + R[..., 2, 2] ** 2))
+    roll = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return torch.stack([yaw, pitch, roll], dim=-1)
 
 
 def euler_zyx_rate_to_omega_world_matrix(zyx):

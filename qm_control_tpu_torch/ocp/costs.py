@@ -18,13 +18,14 @@ vmaps it over the nodes; mode-dependent terms are float masks.
 """
 import numpy as np
 import torch
-from torch.func import grad, jacfwd
+from torch.func import grad
 
 from ..config import CostConfig, FrictionConfig, JointLimitsConfig, QmConfig
 from ..models import centroidal as C
 from ..models import chainfk
 from ..models import kinematics as K
 from ..models._const import const
+from ..models._fwd import jacfwd
 from ..models.rotations import R_to_quat, quat_distance
 from ..models.smallmat import mtm_unrolled, mtv_unrolled
 from ..models.spec import NUM_BASE, RobotModel, default_q

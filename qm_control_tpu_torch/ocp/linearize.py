@@ -24,12 +24,12 @@ CppAD-codegen Jacobians of QMDynamicsAD::linearApproximation
 """
 import numpy as np
 import torch
-from torch.func import jacfwd
 
 from ..config import QmConfig
 from ..models import centroidal as C
 from ..models import chainfk
 from ..models._const import const
+from ..models._fwd import jacfwd
 from ..models.rotations import euler_zyx_to_R, skew
 from ..models.smallmat import mm_unrolled, mtm_unrolled, mtv_unrolled
 from ..models.spec import CONTACT_LEG_JOINTS, RobotModel

@@ -14,12 +14,12 @@ computed for all nodes at once into tensors on the solve's device.
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd
 
 from ..config import QmConfig
 from ..gaits.gait import ModeSchedule, contact_flags_at_time
 from ..gaits.swing import SwingConfig, swing_z_reference
 from ..models import centroidal as C
+from ..models._fwd import jacfwd
 from ..models.spec import RobotModel
 from .constraints import apply_input_param, input_parameterization
 from .costs import (ee_residual, make_stage_cost, make_stage_quadratizer,

@@ -40,6 +40,12 @@ class HybridCommand(NamedTuple):
     ff: torch.Tensor        # (18,)
 
 
+def zero_command(device="cuda", dtype=torch.float32) -> HybridCommand:
+    from .. import resolve_device
+    z = torch.zeros(NUM_JOINTS, dtype=dtype, device=resolve_device(device))
+    return HybridCommand(z, z, z, z, z)
+
+
 class PlantState(NamedTuple):
     q: torch.Tensor           # (24,)
     v: torch.Tensor           # (24,)

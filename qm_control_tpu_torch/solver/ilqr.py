@@ -13,9 +13,10 @@ from functools import partial
 from typing import NamedTuple
 
 import torch
-from torch.func import grad, jacfwd, vmap
+from torch.func import grad, vmap
 from torch.utils._pytree import tree_map
 
+from ..models._fwd import jacfwd
 from .sqp import _pick
 
 

@@ -89,7 +89,9 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
     nodes_in = (0,) * len(node_data)
 
     if stage_quad is None:
-        from torch.func import grad, jacfwd
+        from torch.func import grad
+
+        from ..models._fwd import jacfwd
 
         def stage_quad(kd, x, w):
             def lfun(zz):
@@ -101,7 +103,9 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
                     lzz[nx:, :nx])
 
     if final_quad is None:
-        from torch.func import grad, jacfwd
+        from torch.func import grad
+
+        from ..models._fwd import jacfwd
 
         def final_quad(fd, x):
             def lfun(xx):
@@ -129,7 +133,7 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
             A, B, _, lx, lw, lxx, lww, lwx = stage_linearize(kd, x, w)
             return A, B, lx, lw, lxx, lww, lwx
     else:
-        from torch.func import jacfwd
+        from ..models._fwd import jacfwd
 
         def node(kd, x, w):
             AB = jacfwd(lambda z: dynamics(kd, z[:nx], z[nx:]))(

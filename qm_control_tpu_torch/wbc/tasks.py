@@ -12,12 +12,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd, jvp, vmap
+from torch.func import vmap
 
 from ..models import centroidal as C
 from ..models import dynamics as D
 from ..models import kinematics as K
 from ..models._const import const
+from ..models._fwd import jacfwd, jvp
 from ..models.rotations import (euler_zyx_rate_to_omega_world_matrix,
                                 euler_zyx_to_R, rotation_error_world)
 from ..models.spec import NQ, RobotModel
