@@ -138,6 +138,39 @@ of them passed; each prints its wall time):
      cycle; ms per batched cycle;
   8. experiments.batched_rollouts at N = 67, batch 256, 5 steps:
      finite_fraction 1.0.
+  9. scale-out (parallel/mesh.py, parallel/distributed.py) on bench.py's
+     problem (phase 6's batch, B = 256 global). Its gates run while the
+     4b-4g children run (after 4f): (a) one rank over NCCL in this
+     process (make_mesh()): sharded_fleet_step and sharded_mpc_step bit
+     for bit the unsharded make_batched_mpc_step on the same batch (every
+     leaf of batch' and policy), mean_cost within 1e-5 relative of
+     policy.cost.mean(), the sharded dry-run cycle (the JAX package's
+     dryrun_multichip: the fleet step, policy evaluation, the batched
+     WBC) one K1 launch of 256 blocks with every torque finite and within
+     model.joint_effort + 1e-3 and K1 against vmap(cascade_plain) on the
+     same stacks by phase 3b's rule (median torque gap within the stack
+     case's cold bound, level residual means within 1.05x + slack),
+     sharded_mean over arange(2n) within 1e-5 of its closed form; (b) two
+     ranks sharing the card over gloo with CUDA tensors (128 scenarios
+     each), started by torch.distributed.run: each rank's dry run by
+     (a)'s gates on its own stacks with one K1 launch of 128 blocks, its
+     gathered costs (mesh.gather_rows) equal to its rows, one warm
+     sharded batched cycle (phase 7's configuration on shard_scenarios
+     carries) one launch of 128 blocks per tick with every metric finite
+     and every scenario safe; rank 0 recomputes the one-rank run (its
+     digest equal to (a)'s, bit for bit) and holds the gathered rows of
+     both ranks against it by phase 6's rule (cost 1e-3 relative, X
+     2e-3, W 0.5 N) and the dry run's K1 torques by phase 3b's median
+     rule (the plain version's gap on the same inputs printed beside);
+     mean_cost equal on both ranks and within 1e-5 relative of (a)'s;
+     (c) two NCCL ranks, one card each, by (b)'s gates, and K1 on card 1
+     after card 0 in one process bit for bit, only where the machine has
+     two cards (else a line says why not). After phase 8, with no other
+     child running, printed, not gated: the sharded fleet step at
+     B = 1024 global on one rank (and at 512) against two ranks sharing
+     the card with half the host's cores as threads each (solves/s by
+     bench.py's method, the all-reduce's ms, peak memory per rank);
+     `--distributed` adds two ranks with all the cores each.
 The profiles of phases 5 and 6 run last: the profiler leaves tracing on
 and slows what runs after it (phase 5 prints the tick after it). A
 [kernels] line lists K1's launches on every path.
@@ -147,7 +180,8 @@ Without a CUDA device it exits non-zero before printing any result.
 
 runs phase 6 alone at B scenarios (the B = 1024 and 4096 probes);
 `--main-path`, `--experiment NAME`, `--mpc-variant` and `--hardware` are
-phases 4b, 4c, 4d and 4g alone.
+phases 4b, 4c, 4d and 4g alone; `--distributed` is phases 1-2 and 9
+alone (`--scaleout-rank` is one of its ranks under torch.distributed.run).
 """
 import json
 import os
@@ -231,6 +265,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 BATCH = 256                 # phases 3b, 6-8: bench.py's batch
 K1_BATCHES = (1, 132, 256, 1024, 4096)   # phase 3b's timed grid sizes
 BATCH_CYCLES = 3            # phase 7
+SCALE_TIMED_BATCH = 1024    # phase 9: solves/s, one rank against two
+SCALE_CHILD_TIMEOUT_S = 300  # each rank of phase 9(b) and 9(c)
 
 
 def _smi():
@@ -1615,6 +1651,553 @@ def _check_experiments(res):
     return {name: r["launches"] for name, r in res.items()}
 
 
+def _fleet_times(mesh, step, B=SCALE_TIMED_BATCH):
+    """Phase 9's printed numbers for this rank: the sharded fleet step on
+    bench.py's problem at B global scenarios (this rank's share), by
+    bench.py's method (2 untimed steps, then 10 timed between
+    barriers); the all-reduce of fleet_mean alone on this rank's costs
+    (host clock around synchronizes, median of 20); the peak memory."""
+    import torch
+    import torch.distributed as dist
+    from qm_control_tpu_torch.parallel.distributed import sharded_fleet_step
+    from qm_control_tpu_torch.parallel.mesh import (fleet_mean, local_rows,
+                                                    mesh_device,
+                                                    shard_scenarios)
+    dev = mesh_device(mesh)
+    fleet = sharded_fleet_step(mesh, step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch = shard_scenarios(mesh, _bench_batch(B, dev))
+    for _ in range(2):
+        batch, pol, _ = fleet(batch)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        batch, pol, _ = fleet(batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 10
+    dist.barrier()
+    cost = local_rows(mesh, pol.cost)
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet_mean(mesh, cost)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return dict(B=B, ranks=mesh.size(), threads=torch.get_num_threads(),
+                local_B=int(cost.shape[0]), step_ms=1e3 * step_s,
+                allreduce_ms=statistics.median(times),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _wbc_against_plain(model, info, args, x_k, tau_k):
+    """K1's solution x_k (torques tau_k) of the batched WBC on `args` (its
+    arguments) against vmap(cascade_plain) on the same stacks (wbc_stack,
+    default gains), by phase 3b's rule: in each group of stacks (all four
+    feet in contact: the stance case; else the trot case) the median
+    torque gap within STACK_CASES' cold bound, and at each level the mean
+    residual of K1 within 1.05 x the plain one's + 0.005 (1 + |b|).
+    Returns (the plain torques, the numbers, whether the rule holds)."""
+    import torch
+    from torch.func import vmap
+    from qm_control_tpu_torch.config import WbcGains
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.wbc.tasks import recover_torques
+    from qm_control_tpu_torch.wbc.wbc import wbc_stack
+    tau_max = torch.as_tensor(model.joint_effort, dtype=torch.float32,
+                              device=x_k.device)
+    m, tasks = vmap(lambda *a: wbc_stack(model, info, WbcGains(), tau_max,
+                                         *a),
+                    in_dims=(0,) * 6 + (None, None))(*args)
+    x_p = vmap(K.cascade_plain)(*tasks)
+    tau_p = vmap(recover_torques)(m, x_p)
+    out = _torque_gap(tau_k, tau_p, args[5])
+    ok = all(g["median"] < g["bound"] for g in out.values())
+    means = []
+    for t in tasks:
+        r_k = (torch.einsum("bij,bj->bi", t.A, x_k) - t.b).norm(dim=1)
+        r_p = (torch.einsum("bij,bj->bi", t.A, x_p) - t.b).norm(dim=1)
+        means.append([float(r_k.mean()), float(r_p.mean()),
+                      float((0.005 * (1 + t.b.norm(dim=1))).mean())])
+    out["level_means"] = means
+    return tau_p, out, ok and all(mk <= 1.05 * mp + sl
+                                  for mk, mp, sl in means)
+
+
+def _torque_gap(tau, ref, flags):
+    """max over joints of |tau - ref| per scenario, in the groups of
+    _wbc_against_plain: its quantiles, the bound of the group and the
+    scenario of the largest gap."""
+    import numpy as np
+    gap = (tau - ref).abs().amax(dim=1).cpu().numpy()
+    stance = flags.bool().all(dim=1).cpu().numpy()
+    out = {}
+    for (name, _, _, tols), sel in zip(STACK_CASES, (stance, ~stance)):
+        if sel.any():
+            q = np.percentile(gap[sel], [50, 99, 100])
+            out[name] = dict(n=int(sel.sum()), median=float(q[0]),
+                             p99=float(q[1]), max=float(q[2]),
+                             bound=tols[0],
+                             worst=int(np.flatnonzero(sel)[
+                                 gap[sel].argmax()]))
+    return out
+
+
+def _gap_text(gap):
+    return "; ".join(
+        f"{name} ({g['n']}): median {g['median']:.4f} Nm (bound "
+        f"{g['bound']}), p99 {g['p99']:.4f}, max {g['max']:.4f} (scenario "
+        f"{g['worst']})" for name, g in gap.items() if name != "level_means")
+
+
+def _digest(*tensors):
+    """sha256 of the tensors' bytes: two runs' rows, the same bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in tensors:
+        h.update(a.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dryrun_check(mesh, model, info, cfg, batch, tag):
+    """The sharded dry-run cycle (parallel.distributed.sharded_dryrun_cycle)
+    on `batch` with K1's counts reset before and read after: one launch
+    of B_local blocks, every torque finite and within model.joint_effort
+    + 1e-3 (tests/test_hw.py's bound), and K1 against vmap(cascade_plain)
+    on this rank's own stacks (_wbc_against_plain). Returns (its numbers,
+    this rank's K1 torques, the plain ones)."""
+    import numpy as np
+    import torch
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.parallel.distributed import (
+        dryrun_wbc_args, sharded_dryrun_cycle)
+    from qm_control_tpu_torch.parallel.mesh import local_rows
+    cycle = sharded_dryrun_cycle(mesh, model, info, cfg)
+    torch.cuda.synchronize()
+    K.launch_count = K.block_count = 0
+    new_batch, policy, mean_cost, res = cycle(batch)
+    launches, blocks = K.launch_count, K.block_count
+    x_k, tau_k = local_rows(mesh, (res.x_opt, res.torques))
+    args = dryrun_wbc_args(*local_rows(mesh, (policy, new_batch.x)))
+    tau_p, vs_plain, plain_ok = _wbc_against_plain(model, info, args, x_k,
+                                                   tau_k)
+    tau = tau_k.cpu().numpy()
+    finite = bool(np.isfinite(tau).all())
+    over = float((np.abs(tau) - np.asarray(model.joint_effort)).max())
+    print(f"[9 {tag}] sharded dry-run cycle: K1 launches {launches}, blocks "
+          f"{blocks}; torques finite {finite}, max |tau| - effort "
+          f"{over:.3e} Nm (bound 1e-3), mean MPC cost {float(mean_cost):.4f}"
+          f"; K1 vs vmap(cascade_plain) on the same stacks: "
+          f"{_gap_text(vs_plain)}; level residual means K1/plain/slack "
+          f"{[[round(v, 4) for v in m] for m in vs_plain['level_means']]} "
+          f"(bound 1.05x + slack)")
+    if not ((launches, blocks) == (1, tau.shape[0]) and finite
+            and over <= 1e-3 and plain_ok):
+        raise AssertionError(f"phase 9 {tag}: the dry-run cycle launched K1 "
+                             f"{launches} times ({blocks} blocks) for "
+                             f"{tau.shape[0]} scenarios, or its torques are "
+                             f"not finite and within the limits, or K1 "
+                             f"misses vmap(cascade_plain)'s rule")
+    return (dict(launches=launches, blocks=blocks, tau_over_effort=over,
+                 vs_plain=vs_plain), tau_k, tau_p)
+
+
+def _against_one_rank(model, info, step, full, rows):
+    """Rank 0 of phase 9(b)/(c): the one-rank run on the global batch
+    `full` (the unsharded step and the dry run's WBC, which phase 9(a)
+    holds bit for bit the one-rank mesh's; its digest shows the parent
+    that they are (a)'s rows) against the gathered rows of both ranks
+    (cost, X, W, K1 torques, plain torques): phase 6's numbers for the
+    rows, and per scenario the torque gap of K1 to K1 and of the plain
+    version to the plain version."""
+    from qm_control_tpu_torch.parallel import make_batched_wbc
+    from qm_control_tpu_torch.parallel.distributed import dryrun_wbc_args
+    ref_b, ref = step(full)
+    args = dryrun_wbc_args(ref, ref_b.x)
+    res = make_batched_wbc(model, info, cascade="fused",
+                           device=full.x.device)(*args)
+    ref_tau_p, _, _ = _wbc_against_plain(model, info, args, res.x_opt,
+                                         res.torques)
+    cost, X, W, tau_k, tau_p = rows
+    return dict(
+        digest=_digest(ref.cost, ref.X, ref.W, res.torques),
+        cost_rel=float(((cost - ref.cost).abs()
+                        / ref.cost.abs().clamp(min=1.0)).max()),
+        x_err=float((X - ref.X).abs().max()),
+        w_err=float((W - ref.W).abs().max()),
+        k1=_torque_gap(tau_k, res.torques, args[5]),
+        plain=_torque_gap(tau_p, ref_tau_p, args[5]))
+
+
+def scaleout_rank():
+    """Phase 9(b)/(c), one rank, run as `python -m torch.distributed.run
+    --nproc-per-node 2 ... chip_smoke.py --scaleout-rank` with
+    SCALEOUT_BACKEND, SCALEOUT_MODE and, for ranks that share a card,
+    SCALEOUT_CARD in the environment; initialize_distributed reads the
+    rest from torchrun's variables. MODE "check": the sharded fleet step
+    on bench.py's problem at BATCH global scenarios, the dry-run cycle
+    (_dryrun_check), the rows of both ranks gathered (mesh.gather_rows)
+    and on rank 0 held against the one-rank run (_against_one_rank), one
+    warm sharded batched cycle (make_batched_cycle on shard_scenarios
+    carries, one K1 launch of B_local blocks per tick, every metric
+    finite, every scenario safe); MODE "times": _fleet_times. Rank 0
+    prints one JSON line with the numbers of every rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import vmap
+    sys.path.insert(0, ROOT)
+    from qm_control_tpu_torch.config import QmConfig
+    from qm_control_tpu_torch.experiments import _default_cfg
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.models import centroidal as C
+    from qm_control_tpu_torch.models import default_q, load_model
+    from qm_control_tpu_torch.parallel import (make_batched_cycle,
+                                               make_batched_mpc_step)
+    from qm_control_tpu_torch.parallel.distributed import (
+        global_mesh, initialize_distributed, sharded_fleet_step)
+    from qm_control_tpu_torch.parallel.mesh import (from_local_rows,
+                                                    gather_rows, local_rows,
+                                                    mesh_device,
+                                                    shard_scenarios)
+    from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
+    backend, mode = os.environ["SCALEOUT_BACKEND"], os.environ["SCALEOUT_MODE"]
+    card = os.environ.get("SCALEOUT_CARD")
+    K.build()                      # the parent built it: found on disk
+    initialize_distributed(local_device_ids=None if card is None else
+                           int(card), backend=backend)
+    mesh = global_mesh()
+    dev = mesh_device(mesh)
+    rank = dist.get_rank()
+    tag = f"{'b' if backend == 'gloo' else 'c'} rank {rank}"
+    print(f"[9 {tag}] {dist.get_backend()} world {dist.get_world_size()} on "
+          f"{dev} ({torch.cuda.get_device_name(dev)}), "
+          f"{torch.get_num_threads()} intra-op threads")
+    model = load_model()
+    info = C.make_centroidal_info(model)
+    cfg = QmConfig()
+    step = make_batched_mpc_step(model, info, cfg)
+    out = dict(rank=rank, backend=backend, card=dev.index)
+    if mode == "times":
+        out["times"] = _fleet_times(mesh, step)
+    else:
+        full = _bench_batch(BATCH, dev)
+        batch = shard_scenarios(mesh, full)
+        _, pol, mean_cost = sharded_fleet_step(mesh, step)(batch)
+        dry, tau_k, tau_p = _dryrun_check(mesh, model, info, cfg, batch, tag)
+        rows = gather_rows(mesh, (pol.cost, pol.X, pol.W,
+                                  *from_local_rows(mesh, (tau_k, tau_p))))
+        n = tau_k.shape[0]
+        gathered = bool(torch.equal(rows[0][rank * n:(rank + 1) * n],
+                                    pol.cost.to_local()))
+        print(f"[9 {tag}] fleet step: {n} of {rows[0].shape[0]} scenarios, "
+              f"mean cost {float(mean_cost):.6f}; the global gather "
+              f"(gather_rows) holds this rank's rows: {gathered}")
+        if not gathered:
+            raise AssertionError(f"phase 9 {tag}: the gathered costs differ "
+                                 f"from this rank's")
+        if rank == 0:
+            out["vs_one_rank"] = _against_one_rank(model, info, step, full,
+                                                   rows)
+        # one warm sharded batched cycle (phase 7's configuration)
+        ccfg = _default_cfg()
+        loop_cfg = LoopConfig(control_freq=1000.0)
+        vcycle, make_carries = make_batched_cycle(model, info, ccfg, loop_cfg,
+                                                  device=dev)
+        loop = ControlLoop(model, info, ccfg, loop_cfg, device=dev)
+        carries = make_carries(default_q(base_pos=(0, 0, 0.38)), BATCH)
+        q = carries.plant.q.clone()
+        q[:, 2] += torch.as_tensor(_spread(BATCH), device=dev)
+        carries = carries._replace(plant=carries.plant._replace(q=q))
+        carries, target, ms = local_rows(mesh, shard_scenarios(
+            mesh, (carries, full.target, full.ms)))
+        carries = vmap(loop._warmup)(carries, target, ms)     # one solve
+        torch.cuda.synchronize()
+        K.launch_count = K.block_count = 0
+        t0 = time.perf_counter()
+        carries, m = vcycle(carries, target, ms, ccfg.wbc)
+        torch.cuda.synchronize()
+        cycle_s = time.perf_counter() - t0
+        launches, blocks = K.launch_count, K.block_count
+        ticks = loop_cfg.ticks_per_cycle
+        finite = all(bool(torch.isfinite(v).all()) for v in m
+                     if v.dtype.is_floating_point)
+        safe = bool(m.safe.all())
+        print(f"[9 {tag}] warm sharded batched cycle, {n} carries: K1 "
+              f"launches {launches}, blocks {blocks} in {ticks} ticks; every "
+              f"metric finite {finite}, every scenario safe {safe}; "
+              f"{cycle_s:.2f} s")
+        if not ((launches, blocks) == (ticks, ticks * n) and finite and safe):
+            raise AssertionError(f"phase 9 {tag}: the sharded batched cycle")
+        out.update(mean_cost=float(mean_cost), dryrun=dry,
+                   cycle=dict(launches=launches, blocks=blocks, ticks=ticks,
+                              wall_s=cycle_s))
+    sys.stdout.flush()
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)  # after every print of every rank
+    dist.destroy_process_group()
+    if rank == 0:                       # one write: no rank prints beside
+        os.write(1, (json.dumps({"scaleout": ranks}) + "\n").encode())
+    return 0
+
+
+def _two_ranks(backend, mode, share_card, threads=None):
+    """Two scaleout_rank processes in `mode` under torch.distributed.run on
+    localhost (both on card 0 where `share_card`, else one card each by
+    LOCAL_RANK; `threads`: their OMP_NUM_THREADS, torchrun's 1 when None),
+    with a time limit; returns (their JSON results by rank, wall s)."""
+    import signal
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+                        "LOCAL_RANK", "OMP_NUM_THREADS")}
+    # the ranks share this host: sockets on the loopback interface
+    env.update(SCALEOUT_BACKEND=backend, SCALEOUT_MODE=mode,
+               GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo",
+               PYTHONFAULTHANDLER="1")
+    if share_card:
+        env["SCALEOUT_CARD"] = "0"
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "127.0.0.1", "--master-port", str(port),
+         os.path.abspath(__file__), "--scaleout-rank"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        log = proc.communicate(timeout=SCALE_CHILD_TIMEOUT_S)[0]
+    finally:            # torchrun and its ranks, on a timeout too
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    results = []
+    for line in log.splitlines():
+        if line.startswith('{"scaleout"'):
+            results = json.loads(line)["scaleout"]
+        else:
+            print(f"[9 torchrun] {line}")
+    if proc.returncode != 0 or [r["rank"] for r in results] != [0, 1]:
+        raise AssertionError(f"phase 9 {backend} {mode}: torchrun exit "
+                             f"{proc.returncode}, results of ranks "
+                             f"{[r['rank'] for r in results]}")
+    return results, time.perf_counter() - t0
+
+
+def _two_ranks_check(backend, share_card, a_out):
+    """Phase 9(b)/(c) gates from the parent: every rank's K1 launches (the
+    dry run one of B_local blocks, the warm cycle one per tick); rank 0's
+    one-rank run the same bit for bit as (a)'s (the digest); the rows of
+    both ranks against it by phase 6's batched-vs-unbatched rule (cost
+    1e-3 relative, X 2e-3, W 0.5 N) and the dry run's K1 torques against
+    its K1 torques by phase 3b's median rule (_torque_gap; the plain
+    version's gap beside it, printed); mean_cost the same on both ranks
+    and within 1e-5 relative of (a)'s."""
+    results, wall = _two_ranks(backend, "check", share_card)
+    n = BATCH // 2
+    for res in results:
+        dry, cyc = res["dryrun"], res["cycle"]
+        if not ((dry["launches"], dry["blocks"]) == (1, n)
+                and (cyc["launches"], cyc["blocks"])
+                == (cyc["ticks"], cyc["ticks"] * n)):
+            raise AssertionError(f"phase 9 {backend} rank {res['rank']}: K1 "
+                                 f"launches {dry} / {cyc}")
+    v = results[0]["vs_one_rank"]
+    means = [res["mean_cost"] for res in results]
+    rel = abs(means[0] - a_out["mean"]) / abs(a_out["mean"])
+    same = v["digest"] == a_out["digest"]
+    print(f"[9 {backend}] two ranks ({n} scenarios each, "
+          f"{'sharing card 0' if share_card else 'one card each'}) against "
+          f"the one-rank run (rank 0's recomputation bit for bit (a)'s: "
+          f"{same}): cost {v['cost_rel']:.2e} rel (bound 1e-3), max|dX| "
+          f"{v['x_err']:.2e} (2e-3), max|dW| {v['w_err']:.2e} (0.5); dry-run "
+          f"torques, K1 against K1: {_gap_text(v['k1'])}; the plain version "
+          f"against the plain version on the same inputs: "
+          f"{_gap_text(v['plain'])}; mean_cost {means[0]:.6f} / "
+          f"{means[1]:.6f} on the two ranks, {rel:.2e} rel of the one-rank "
+          f"run's (1e-5); {wall:.1f} s wall")
+    if not (same and v["cost_rel"] <= 1e-3 and v["x_err"] <= 2e-3
+            and v["w_err"] <= 0.5 and means[0] == means[1] and rel <= 1e-5
+            and all(g["median"] < g["bound"] for g in v["k1"].values())):
+        raise AssertionError(f"phase 9 {backend}: the two ranks disagree "
+                             f"with the one-rank run")
+    return dict(share_card=share_card, vs_one_rank=v, mean_rel=rel,
+                wall_s=wall, ranks=results)
+
+
+def _k1_second_card(model, info):
+    """K1 on card 1 after card 0 in one process (its shared-memory
+    attribute is set per device): the stance stack, bit for bit."""
+    import torch
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    _, tasks = _wbc_test_stack(model, info, torch.device("cuda", 0),
+                               (1., 1., 1., 1.), 0.0)
+    x0 = K.fused_hoqp(*tasks)
+    x1 = K.fused_hoqp(*[type(t)(*[a.to("cuda:1") for a in t])
+                        for t in tasks])
+    same = bool(torch.equal(x0.cpu(), x1.cpu()))
+    print(f"[9 c] K1 on cuda:1 after cuda:0 in one process: launched, "
+          f"bit for bit the same {same}")
+    if not same:
+        raise AssertionError("phase 9 c: K1 on the second card differs")
+    return same
+
+
+def scaleout_check(model, info):
+    """Phase 9's gates: (a) one rank over NCCL in this process; (b) two
+    ranks on one card over gloo; (c) two ranks over NCCL, one card each,
+    and K1 on the second card in this process, where the machine has two
+    cards. Returns their numbers and the K1 launches of each path."""
+    import torch
+    import torch.distributed as dist
+    from torch.utils._pytree import tree_leaves
+    from qm_control_tpu_torch.config import QmConfig
+    from qm_control_tpu_torch.parallel import make_batched_mpc_step, make_mesh
+    from qm_control_tpu_torch.parallel.distributed import (
+        sharded_fleet_step, sharded_mean, sharded_mpc_step)
+    dev = torch.device("cuda")
+    # ---- (a) one rank, NCCL, in this process ----
+    mesh = make_mesh(device="cuda")
+    backend = dist.get_backend()
+    cfg = QmConfig()
+    step = make_batched_mpc_step(model, info, cfg)
+    batch = _bench_batch(BATCH, dev)
+    ref_b, ref = step(batch)
+    again = step(batch)[1]
+    repeats = all(torch.equal(a, b) for a, b in zip(ref, again))
+    ref_mean = float(ref.cost.mean())
+    a_out = dict(backend=backend, unsharded_repeats=repeats)
+    for name, wrap in (("sharded_fleet_step", sharded_fleet_step),
+                       ("sharded_mpc_step", sharded_mpc_step)):
+        nb, pol, mean_cost = wrap(mesh, step)(batch)
+        exact = all(torch.equal(a.full_tensor(), b) for a, b in zip(
+            tree_leaves((nb, pol)), tree_leaves((ref_b, ref))))
+        rel = abs(float(mean_cost) - ref_mean) / abs(ref_mean)
+        print(f"[9 a] {name} on a one-rank {backend} mesh, B = {BATCH}: "
+              f"bit for bit the unsharded make_batched_mpc_step {exact} "
+              f"(the unsharded step repeats bit for bit: {repeats}); "
+              f"mean_cost {float(mean_cost):.6f} vs policy.cost.mean() "
+              f"{ref_mean:.6f}: {rel:.2e} rel (bound 1e-5)")
+        if not (backend == "nccl" and exact and rel <= 1e-5):
+            raise AssertionError(f"phase 9 a: {name} on one rank")
+        a_out[name] = dict(exact=exact, mean_rel=rel)
+    a_out["dryrun"], tau_a, _ = _dryrun_check(mesh, model, info, cfg, batch,
+                                              "a")
+    a_out.update(mean=ref_mean, digest=_digest(ref.cost, ref.X, ref.W, tau_a))
+    n = mesh.size()
+    val = float(sharded_mean(mesh, lambda x: x)(
+        torch.arange(2 * n, dtype=torch.float32, device=dev)))
+    print(f"[9 a] sharded_mean over arange({2 * n}): {val} (closed form "
+          f"{(2 * n - 1) / 2.0}, bound 1e-5)")
+    if not abs(val - (2 * n - 1) / 2.0) <= 1e-5:
+        raise AssertionError("phase 9 a: sharded_mean")
+    dist.destroy_process_group()
+    # ---- (b) two ranks on one card, gloo, CUDA tensors ----
+    b_out = _two_ranks_check("gloo", True, a_out)
+    # ---- (c) two ranks over NCCL, one card each ----
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        c_out = _two_ranks_check("nccl", False, a_out)
+        c_out["k1_second_card"] = _k1_second_card(model, info)
+    else:
+        c_out = f"not run: this machine has {cards} CUDA device(s)"
+        print(f"[9 c] two NCCL ranks, one card each: {c_out}; NCCL "
+              f"across cards and K1's per-device shared-memory setup stay "
+              f"unverified")
+    launches = {"9a dry run (1 rank)": a_out["dryrun"]["launches"],
+                **{f"9b dry run, rank {r}": res["dryrun"]["launches"]
+                   for r, res in enumerate(b_out["ranks"])},
+                **{f"9b warm batched cycle, rank {r}":
+                   res["cycle"]["launches"]
+                   for r, res in enumerate(b_out["ranks"])}}
+    return dict(one_rank=a_out, two_ranks_one_card=b_out, two_cards=c_out,
+                launches=launches)
+
+
+def scaleout_times(model, info, thread_sweep=False):
+    """Phase 9's printed numbers, with no other child running: the sharded
+    fleet step on one rank (NCCL, this process) at SCALE_TIMED_BATCH and
+    at half of it, then on two ranks sharing the card (gloo, torchrun) at
+    SCALE_TIMED_BATCH global with half this host's cores as each rank's
+    OMP_NUM_THREADS (so the two oversubscribe no core); with
+    `thread_sweep`, once more with all the cores each, as many intra-op
+    threads as one rank alone has. Solves/s, the all-reduce's ms, peak
+    memory per rank."""
+    import torch.distributed as dist
+    from qm_control_tpu_torch.config import QmConfig
+    from qm_control_tpu_torch.parallel import make_batched_mpc_step, make_mesh
+    mesh = make_mesh(device="cuda")
+    backend = dist.get_backend()
+    step = make_batched_mpc_step(model, info, QmConfig())
+    one = _fleet_times(mesh, step)
+    half = _fleet_times(mesh, step, SCALE_TIMED_BATCH // 2)
+    dist.destroy_process_group()
+    print(f"[9 times] sharded fleet step (2 untimed, 10 timed), one rank "
+          f"({backend}, {one['threads']} threads): B = {SCALE_TIMED_BATCH} "
+          f"{one['step_ms']:.1f} ms, "
+          f"{1e3 * SCALE_TIMED_BATCH / one['step_ms']:.1f} solves/s, peak "
+          f"{one['peak_gib']:.2f} GiB, all-reduce {one['allreduce_ms']:.3f} "
+          f"ms; B = {half['B']} {half['step_ms']:.1f} ms")
+    cores = len(os.sched_getaffinity(0))
+    out = dict(one_rank=one, one_rank_half=half, cores=cores,
+               solves_per_s=1e3 * SCALE_TIMED_BATCH / one["step_ms"])
+    for key, threads in (("two_ranks", max(1, cores // 2)),
+                         ("two_ranks_all_threads", cores)):
+        if key == "two_ranks_all_threads" and not thread_sweep:
+            break
+        results, _ = _two_ranks("gloo", "times", True, threads)
+        two = [r["times"] for r in results]
+        two_ms = max(t["step_ms"] for t in two)
+        out[key] = dict(ranks=two, solves_per_s=1e3 * SCALE_TIMED_BATCH
+                        / two_ms, speedup=one["step_ms"] / two_ms)
+        print(f"[9 times] two ranks sharing the card (gloo, {threads} "
+              f"threads each) at B = {SCALE_TIMED_BATCH} global: "
+              + ", ".join(f"rank {r} {t['step_ms']:.1f} ms, peak "
+                          f"{t['peak_gib']:.2f} GiB, all-reduce "
+                          f"{t['allreduce_ms']:.3f} ms"
+                          for r, t in enumerate(two))
+              + f": {out[key]['solves_per_s']:.1f} solves/s, "
+              f"{out[key]['speedup']:.2f}x one rank")
+    return out
+
+
+def distributed_only():
+    """`chip_smoke.py --distributed`: phases 1-2 (the card, K1's build)
+    and phase 9 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from qm_control_tpu_torch.kernels import hoqp_fused as K
+    from qm_control_tpu_torch.models import centroidal as C
+    from qm_control_tpu_torch.models import load_model
+    clock = _Clock()
+    smi = _smi()
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} count "
+          f"{torch.cuda.device_count()}")
+    K.build()
+    print(f"[build] K1 in {K.build_info['seconds']:.1f} s; dynamic shared "
+          f"memory per block {K.smem_bytes()} B")
+    clock.done("1-2")
+    model = load_model()
+    info = C.make_centroidal_info(model)
+    scale = scaleout_check(model, info)
+    clock.done("9 (checks)")
+    scale["times"] = scaleout_times(model, info, thread_sweep=True)
+    clock.done("9 (times)")
+    print(json.dumps({"scaleout": scale, "card": smi}))
+    print(smi)
+    return 0
+
+
 class _Clock:
     """Prints each phase's wall time."""
 
@@ -1960,6 +2543,10 @@ def _phases(smi, clock, children):
     hoqp_batched_ms = _batched_hoqp_check(model, info, dev, cfg)
     clock.done("4f")
 
+    # ---- 9. scale-out, its gates (in the wait for the children) ------------
+    scale_out = scaleout_check(model, info)
+    clock.done("9 (checks)")
+
     # ---- 4b, 4c, 4d and 4g (the child processes) ---------------------------
     ended = children.join(timeout=CHILD_TIMEOUT_S)
     results = {}
@@ -2167,6 +2754,8 @@ def _phases(smi, clock, children):
     if roll["finite_fraction"] != 1.0:
         raise AssertionError("batched_rollouts: non-finite costs")
     clock.done("8")
+    scale_out["times"] = scaleout_times(model, info)
+    clock.done("9 (times)")
 
     # ---- profiles of phases 5 and 6, after every timed phase ----------------
     # device views: one MPC period of ticks, one solve
@@ -2242,7 +2831,9 @@ def _phases(smi, clock, children):
           f"K1-warm (the same kernel with a warm buffer): "
           f"no path launches it, timed alone in phase 5; K1 with grid = "
           f"{BATCH}: {b_launches} launches of {b_blocks} blocks in phase 7's "
-          f"{BATCH_CYCLES} batched cycles")
+          f"{BATCH_CYCLES} batched cycles; phase 9 (per rank, grid = its "
+          f"scenarios: {BATCH} on one rank, {BATCH // 2} on each of two): "
+          f"{scale_out['launches']}")
     k1 = {"route": "cuda",
           "source": "qm_control_tpu_torch/kernels/csrc/hoqp_fused.cu",
           "replaces": "qm_control_tpu/kernels/hoqp_fused.py:619",
@@ -2262,7 +2853,8 @@ def _phases(smi, clock, children):
              ms=bms, plain_ms=plain_batched_ms, bound_ms=bbound,
              bound_by=bby,
              ms_by_batch={str(b): v[0] for b, v in k1_times.items()},
-             bound_ms_by_batch={str(b): v[1] for b, v in k1_times.items()})],
+             bound_ms_by_batch={str(b): v[1] for b, v in k1_times.items()},
+             launches_scaleout=scale_out["launches"])],
         "mpc_solve_ms": mpc_ms, "cycle_ms": cycle_ms, "tick_ms": tick_ms,
         "chained_tick_ms": chained_tick_ms, "hardware": hw,
         "main_ticks": HOLD_TICKS, "experiments": exp_walls,
@@ -2271,7 +2863,9 @@ def _phases(smi, clock, children):
         "riccati": dict(solves=solve_profiles, cost_rel=par_dc, w_rel=par_dw,
                         lq_rel=lq_rel), "ilqr_err": ilqr_err,
         "batched_mpc": mpc_b,
-        "batched_cycle_ms": b_cycle_ms, "rollouts": roll, "card": smi}))
+        "batched_cycle_ms": b_cycle_ms, "rollouts": roll,
+        "scaleout": scale_out,
+        "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2308,4 +2902,8 @@ if __name__ == "__main__":
         sys.exit(hardware_child())
     if sys.argv[1:2] == ["--mpc-batch"]:
         sys.exit(mpc_batch_probe(int(sys.argv[2])))
+    if sys.argv[1:] == ["--distributed"]:
+        sys.exit(distributed_only())
+    if sys.argv[1:] == ["--scaleout-rank"]:
+        sys.exit(scaleout_rank())
     sys.exit(main())

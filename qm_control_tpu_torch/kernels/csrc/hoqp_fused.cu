@@ -52,6 +52,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int NX = 36;          // decision variables [v_dot(24); F(12)]
@@ -884,13 +886,21 @@ int hoqp_fused_launch(const float* A0, const float* b0, const float* D,
   if (ma0 < 1 || ma0 > MAX_ROWS || ma1 < 1 || ma1 > MAX_ROWS || ma2 < 1 ||
       ma2 > MAX_ROWS || nv < 1 || nv > MAX_NV || qp_iters < 0 || batch < 1)
     return (int)cudaErrorInvalidValue;
-  static bool configured = false;
+  // The shared-memory attribute belongs to the current device (the
+  // caller's device guard makes it the operands' card): set it once per
+  // device, on that device's first launch. One bit per device index.
+  static std::atomic<unsigned long long> configured{0};
   const int smem = (int)sizeof(Shared);
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  const unsigned long long bit = 1ull << dev;
+  if (!(configured.load(std::memory_order_acquire) & bit)) {
+    e = cudaFuncSetAttribute(
         hoqp_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured.fetch_or(bit, std::memory_order_release);
   }
   hoqp_fused_kernel<<<batch, NT, smem, (cudaStream_t)stream>>>(
       A0, b0, D, f, A1, b1, A2, b2, warm_in, x_out, warm_out, ma0, nv, ma1,

@@ -18,3 +18,14 @@ def test_chip_smoke_exits_nonzero_without_gpu():
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
     assert "needs a GPU" in proc.stderr
+
+
+def test_chip_smoke_distributed_exits_nonzero_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("with a GPU the script runs phase 9")
+    proc = subprocess.run([sys.executable, "chip_smoke.py", "--distributed"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"scaleout"' not in proc.stdout and '"ok"' not in proc.stdout
+    assert "needs a GPU" in proc.stderr
