@@ -23,6 +23,7 @@ none.
 from typing import NamedTuple, Protocol
 
 import torch
+from torch.profiler import record_function
 
 from .. import resolve_device
 from ..config import QmConfig
@@ -99,6 +100,10 @@ class SimHardware:
         for _ in range(self.substeps):
             self.state, _ = self._step(self.state)
         self._t += self.substeps * self._dt
+
+
+# the record_function range of a tick's sensor read and IMU estimator
+ESTIMATE_SPAN = "hw.estimate"
 
 
 class HardwareLoop:
@@ -193,9 +198,13 @@ class HardwareLoop:
     def tick(self, target, mode_schedule, base_pos_hint, base_vel_hint):
         """One control tick: read -> estimate -> (MPC) -> WBC -> write.
         The base position / velocity hints stand in for the leg-odometry
-        fusion a full estimator would provide."""
-        rbd, x_obs = self._estimate(self.hw.read(), base_pos_hint,
-                                    base_vel_hint)
+        fusion a full estimator would provide. The estimator, the solve,
+        the policy evaluation, the WBC data, the cascade and the plant
+        substeps each run inside a named record_function range (the
+        modules' *_SPAN constants), which a torch.profiler trace shows."""
+        with record_function(ESTIMATE_SPAN):
+            rbd, x_obs = self._estimate(self.hw.read(), base_pos_hint,
+                                        base_vel_hint)
         dev = self.device
         if self.async_mpc:
             # publish the observation; read the newest policy (never

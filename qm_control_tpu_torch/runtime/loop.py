@@ -283,7 +283,7 @@ class ControlLoop:
             model, info, cfg, loop_cfg, settings, self.device, cascade)
         self._escape = None
         self.escape_costs = None
-        self.cycle_timer = RepeatedTimer("control_cycle")
+        self.cycle_timer = RepeatedTimer("control_cycle", self.device)
 
     def _lag(self) -> int:
         return max(1, int(self.loop_cfg.mrt_policy_lag))
@@ -373,9 +373,10 @@ class ControlLoop:
             ms: ModeSchedule, num_cycles: int, log=None):
         """Run num_cycles MPC periods; returns (carry, stacked metrics).
         With a utils.viz.TrajectoryLog, every cycle's metrics are appended
-        to it (copied to the host once per call); each cycle's host wall
-        time (its dispatch: the device may still run) goes to
-        self.cycle_timer."""
+        to it (copied to the host once per call); each cycle's time goes
+        to self.cycle_timer (on the card, CUDA events on the stream around
+        the cycle's work, read when its stats are asked for; on the CPU,
+        the host clock)."""
         out = []
         for _ in range(num_cycles):
             with self.cycle_timer:

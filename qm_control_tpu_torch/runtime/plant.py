@@ -10,6 +10,7 @@ asynchronous on the card.
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..models import dynamics as D
 from ..models import kinematics as K
@@ -133,6 +134,10 @@ def contact_forces(model: RobotModel, cfg: PlantConfig, q, v, anchors):
     return fc, d_diag.reshape(-1), Jc, new_anchors
 
 
+# the record_function range of one plant substep
+STEP_SPAN = "plant.step"
+
+
 def make_plant_step(model: RobotModel, cfg: PlantConfig):
     """step(state) -> (state', contact_forces(4,3)): one sim_dt of
     semi-implicit Euler with the delayed hybrid-joint actuation; contact
@@ -141,6 +146,10 @@ def make_plant_step(model: RobotModel, cfg: PlantConfig):
     dt = cfg.sim_dt
 
     def step(state: PlantState):
+        with record_function(STEP_SPAN):
+            return _step(state)
+
+    def _step(state: PlantState):
         q, v = state.q, state.v
         cmd = delayed_command(state, cfg.delay_steps)
         tau = torch.cat([q.new_zeros(6), hybrid_torque(cmd, q[6:], v[6:])])

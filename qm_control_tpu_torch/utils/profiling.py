@@ -3,18 +3,21 @@
 - `device_trace(log_dir)`: context manager around torch.profiler that
   writes a Chrome trace (chrome://tracing, Perfetto) of the host and,
   when a GPU is present, the device into `log_dir`.
-- `chained_latency` / `stage_latencies`: per-call latency by differential
-  chaining, the JAX module's method: time chains of k1 and k2 dependent
-  calls and return (T2 - T1) / (k2 - k1), so the fixed cost around a
-  chain cancels. On CUDA a chain is timed with CUDA events, on the CPU
-  with perf_counter.
-- `RepeatedTimer` (re-exported from .timers): host-side p50/p99 around
-  whole calls.
+- `chained_latency`: per-call latency by differential chaining, the JAX
+  module's method: time chains of k1 and k2 dependent calls and return
+  (T2 - T1) / (k2 - k1), so the fixed cost around a chain cancels. On
+  CUDA a chain is timed with CUDA events, on the CPU with perf_counter.
+- `RepeatedTimer` (re-exported from .timers): p50/p99 around whole
+  calls, on the card's stream with CUDA events.
+- The port's named stages are torch.profiler record_function ranges
+  (the modules' *_SPAN constants: hw.estimate, mpc.solve with
+  sqp.linearize / sqp.riccati / sqp.line_search inside, mpc.evaluate,
+  wbc.data, wbc.cascade, plant.step); `device_trace` records them.
 """
 import contextlib
 import os
 import time
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -91,11 +94,3 @@ def chained_latency(step_fn: Callable, k1: int = 10, k2: int = 110,
     t2 = _time_chain(make(k2), device, reps)
     return max(t2 - t1, 0.0) / (k2 - k1)
 
-
-def stage_latencies(stages: Dict[str, Callable], k1: int = 10,
-                    k2: int = 110, reps: int = 5) -> Dict[str, float]:
-    """{name: step_fn} -> {name: per-call seconds} by chained_latency: the
-    per-stage decomposition of the control cycle the reference gets from
-    its RepeatedTimers."""
-    return {name: chained_latency(fn, k1, k2, reps)
-            for name, fn in stages.items()}

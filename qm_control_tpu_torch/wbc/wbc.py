@@ -24,6 +24,7 @@ default, the pivoted cascade.
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..config import WbcGains
 from ..models import centroidal as C
@@ -67,37 +68,46 @@ def _result(m, x_opt, ee_wrench) -> WbcResult:
                      vdot=x_opt[:24], forces=x_opt[24:])
 
 
+# the record_function ranges of a tick's WBC: the measured and desired
+# data with every task of the stack, then the cascade that solves it
+DATA_SPAN = "wbc.data"
+CASCADE_SPAN = "wbc.cascade"
+
+
 def wbc_stack(model: RobotModel, info: C.CentroidalInfo, gains: WbcGains,
               tau_max, state_des, input_des, input_last, q, v,
               contact_flags, period, time, ee_wrench=None):
     """(WbcData, (t0, t1, t2)): the three priority levels of one tick."""
-    m, d = compute_wbc_data(model, info, state_des, input_des, input_last,
-                            q, v, contact_flags, period)
-    t0 = _hard_level(m, gains, tau_max, ee_wrench)
-    t1_run = (base_height_task(m, d, gains.base_height_kp,
-                               gains.base_height_kd)
-              + base_angular_task(m, d, gains.kp_base_angular,
-                                  gains.kd_base_angular)
-              + ee_linear_task(m, d, gains.kp_ee_linear, gains.kd_ee_linear)
-              + ee_angular_task(m, d, gains.kp_ee_angular,
-                                gains.kd_ee_angular)
-              + swing_leg_task(m, d, gains.kp_swing,
-                               gains.kd_swing).scaled(gains.swing_task_weight))
-    # arm settling: T1 is arm-joint nominal tracking only, padded with
-    # zero rows to the run stack's shape and blended by a time gate
-    t1_init = arm_joint_tracking_task(m, d, gains.kp_arm_joints,
-                                      gains.kd_arm_joints)
-    pad = t1_run.A.shape[0] - t1_init.A.shape[0]
-    t1_init_padded = Task(
-        torch.cat([t1_init.A, t1_init.A.new_zeros((pad, t1_init.A.shape[1]))]),
-        torch.cat([t1_init.b, t1_init.b.new_zeros(pad)]),
-        t1_run.D, t1_run.f)
-    w_run = (torch.as_tensor(time, device=q.device)
-             >= gains.arm_settling_time).to(q.dtype)
-    t1 = _blend_tasks(t1_init_padded, t1_run, w_run)
-    t2 = contact_force_task(m, input_des) + base_linear_task(
-        m, d, gains.kp_base_linear, gains.kd_base_linear)
-    return m, (t0, t1, t2)
+    with record_function(DATA_SPAN):
+        m, d = compute_wbc_data(model, info, state_des, input_des,
+                                input_last, q, v, contact_flags, period)
+        t0 = _hard_level(m, gains, tau_max, ee_wrench)
+        t1_run = (base_height_task(m, d, gains.base_height_kp,
+                                   gains.base_height_kd)
+                  + base_angular_task(m, d, gains.kp_base_angular,
+                                      gains.kd_base_angular)
+                  + ee_linear_task(m, d, gains.kp_ee_linear,
+                                   gains.kd_ee_linear)
+                  + ee_angular_task(m, d, gains.kp_ee_angular,
+                                    gains.kd_ee_angular)
+                  + swing_leg_task(m, d, gains.kp_swing, gains.kd_swing)
+                  .scaled(gains.swing_task_weight))
+        # arm settling: T1 is arm-joint nominal tracking only, padded with
+        # zero rows to the run stack's shape and blended by a time gate
+        t1_init = arm_joint_tracking_task(m, d, gains.kp_arm_joints,
+                                          gains.kd_arm_joints)
+        pad = t1_run.A.shape[0] - t1_init.A.shape[0]
+        t1_init_padded = Task(
+            torch.cat([t1_init.A,
+                       t1_init.A.new_zeros((pad, t1_init.A.shape[1]))]),
+            torch.cat([t1_init.b, t1_init.b.new_zeros(pad)]),
+            t1_run.D, t1_run.f)
+        w_run = (torch.as_tensor(time, device=q.device)
+                 >= gains.arm_settling_time).to(q.dtype)
+        t1 = _blend_tasks(t1_init_padded, t1_run, w_run)
+        t2 = contact_force_task(m, input_des) + base_linear_task(
+            m, d, gains.kp_base_linear, gains.kd_base_linear)
+        return m, (t0, t1, t2)
 
 
 def hierarchical_wbc_update(model: RobotModel, info: C.CentroidalInfo,
@@ -124,7 +134,9 @@ def hierarchical_wbc_update(model: RobotModel, info: C.CentroidalInfo,
     m, (t0, t1, t2) = wbc_stack(model, info, gains, tau_max, state_des,
                                 input_des, input_last, q, v, contact_flags,
                                 period, time, ee_wrench)
-    return _result(m, cascade(t0, t1, t2), ee_wrench)
+    with record_function(CASCADE_SPAN):
+        x_opt = cascade(t0, t1, t2)
+    return _result(m, x_opt, ee_wrench)
 
 
 def mpc_wbc_stack(model: RobotModel, info: C.CentroidalInfo, gains: WbcGains,
@@ -132,16 +144,19 @@ def mpc_wbc_stack(model: RobotModel, info: C.CentroidalInfo, gains: WbcGains,
                   contact_flags, period, ee_wrench=None):
     """(WbcData, (t0, t1, t2)): the MPC-only variant's levels (reference
     HierarchicalMpcWbc.cpp:18-34), 30/56, 18 and 12 rows."""
-    m, d = compute_wbc_data(model, info, state_des, input_des, input_last,
-                            q, v, contact_flags, period)
-    t1 = (base_height_task(m, d, gains.base_height_kp, gains.base_height_kd)
-          + base_angular_task(m, d, gains.kp_base_angular,
-                              gains.kd_base_angular)
-          + base_linear_task(m, d, gains.kp_base_linear, gains.kd_base_linear)
-          + swing_leg_task(m, d, gains.kp_swing,
-                           gains.kd_swing).scaled(gains.swing_task_weight))
-    return m, (_hard_level(m, gains, tau_max, ee_wrench), t1,
-               contact_force_task(m, input_des))
+    with record_function(DATA_SPAN):
+        m, d = compute_wbc_data(model, info, state_des, input_des,
+                                input_last, q, v, contact_flags, period)
+        t1 = (base_height_task(m, d, gains.base_height_kp,
+                               gains.base_height_kd)
+              + base_angular_task(m, d, gains.kp_base_angular,
+                                  gains.kd_base_angular)
+              + base_linear_task(m, d, gains.kp_base_linear,
+                                 gains.kd_base_linear)
+              + swing_leg_task(m, d, gains.kp_swing, gains.kd_swing)
+              .scaled(gains.swing_task_weight))
+        return m, (_hard_level(m, gains, tau_max, ee_wrench), t1,
+                   contact_force_task(m, input_des))
 
 
 def hierarchical_mpc_wbc_update(model: RobotModel, info: C.CentroidalInfo,
@@ -160,7 +175,9 @@ def hierarchical_mpc_wbc_update(model: RobotModel, info: C.CentroidalInfo,
         from ..kernels.hoqp_fused import fused_hoqp as cascade
     else:
         cascade = _pivoted
-    return _result(m, cascade(*stack), ee_wrench)
+    with record_function(CASCADE_SPAN):
+        x_opt = cascade(*stack)
+    return _result(m, x_opt, ee_wrench)
 
 
 class HierarchicalWbc:

@@ -30,8 +30,7 @@ from qm_control_tpu_torch.utils.checkpoint import (RunCheckpointer,
                                                    load_pytree, save_pytree)
 from qm_control_tpu_torch.utils.profiling import (RepeatedTimer,
                                                   chained_latency,
-                                                  device_trace,
-                                                  stage_latencies)
+                                                  device_trace)
 
 torch.set_num_threads(1)
 
@@ -144,14 +143,12 @@ def test_load_device_rule(tmp_path):
 
 def test_profiling_chained_latency():
     """A trivial step's per-call latency is positive and under the JAX
-    test's 50 ms; stage_latencies maps the names through."""
+    test's 50 ms."""
     def step(c):
         return c * 1.0000001 + 1e-9
 
     dt = chained_latency(step, k1=5, k2=55, reps=3)
     assert 0.0 < dt < 0.05
-    out = stage_latencies({"nop": step}, k1=5, k2=55, reps=2)
-    assert set(out) == {"nop"} and 0.0 <= out["nop"] < 0.05
     step.init = lambda: torch.ones(8)
     assert 0.0 <= chained_latency(step, k1=2, k2=12, reps=2) < 0.05
     assert RepeatedTimer.__module__.endswith("timers")
