@@ -123,11 +123,13 @@ of them passed; each prints its wall time):
      problem (QmConfig(): N = 67, 1 SQP iteration, trot, the hold target,
      x0 at 0.38 m), B = 256 with heights spread over +-0.01 m: every cost
      finite and not all equal, scenarios 0 and B-1 against an unbatched
-     mpc_step on the card (cost 1e-3 relative, X 2e-3, W 0.5 N); solves/s
-     by bench.py's method (2 untimed steps, 10 timed), kernels and device
-     time of one step, peak memory; one step with parallel_riccati=True,
-     scenario 0 against its unbatched solve by the same rule, and its
-     time;
+     mpc_step on the card (cost 1e-3 relative, X 2e-3, W 0.5 N), for the
+     first step (eager) and for step 14 (replayed from its CUDA graphs);
+     solves/s by bench.py's method (2 untimed steps, 10 timed), kernels
+     and device time of one step, peak memory; with
+     parallel_riccati=True (eager throughout), the first step and the
+     fifth, scenario 0 against its unbatched solve by the same rule, and
+     its time;
   7. the batched closed-loop cycle (parallel.make_batched_cycle) at full
      width, B = 256 carries with the same height spread, trot, 1 kHz
      ticks: one warm-up solve, then 3 cycles with the counts reset before
@@ -1372,11 +1374,28 @@ def _device_profile(fn):
     return sum(e.count for e in on_dev), dev_us / 1e3
 
 
+def _replayed(fn):
+    """fn(), asserting that it replayed the batched step's CUDA graphs
+    (mpc/mpc.py GraphedSolve) rather than ran it eagerly or captured."""
+    from qm_control_tpu_torch.mpc import mpc as M
+    before = (M.eager_calls, M.graph_captures, M.graph_replays)
+    out = fn()
+    after = (M.eager_calls, M.graph_captures, M.graph_replays)
+    if tuple(b - a for a, b in zip(before, after)) != (0, 0, 1):
+        raise AssertionError(f"phase 6: the batched step did not replay "
+                             f"(eager, captures, replays) {before} -> "
+                             f"{after}")
+    return out
+
+
 def batched_mpc(model, info, B=BATCH, parallel=False):
     """Phase 6 at B scenarios, without its profile; returns (its numbers,
-    one batched step as a callable). parallel: also one step with
-    parallel_riccati=True from the same batch, its scenario 0 held against
-    the unbatched parallel solve, and timed."""
+    one batched step as a callable). The first step (eager) and a later
+    one (replayed from its CUDA graphs) are each held, scenarios 0 and
+    B - 1, against the unbatched eager mpc_step. parallel: also steps with
+    parallel_riccati=True from the same batch (eager: no CUDA graph), the
+    first and the fifth each held by scenario 0 against the unbatched
+    parallel solve, and timed."""
     import numpy as np
     import torch
     from qm_control_tpu_torch.config import QmConfig
@@ -1388,6 +1407,30 @@ def batched_mpc(model, info, B=BATCH, parallel=False):
     cfg = QmConfig()
     step = make_batched_mpc_step(model, info, cfg)
     batch = _bench_batch(B, dev)
+    ocp = make_ocp(model, info, cfg)
+    period = torch.tensor(1.0 / cfg.mpc.mpc_frequency, device=dev)
+    cold = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def held(label, b, pol, i, settings):
+        """Scenario i of the batched policy pol, from batch b, against the
+        unbatched eager solve by phase 6's rule; returns that solve."""
+        one = mpc_step(ocp, model, info, cfg, settings, b.t[i], b.x[i],
+                       type(b.target)(*[a[i] for a in b.target]),
+                       type(b.ms)(*[a[i] for a in b.ms]),
+                       b.W_warm[i], b.X_warm[i], period, cold)
+        cost = float(pol.cost[i])
+        dc = abs(float(one.cost) - cost) / max(1.0, abs(float(one.cost)))
+        dx = float((one.X - pol.X[i]).abs().max())
+        dw = float((one.W - pol.W[i]).abs().max())
+        print(f"[batched mpc B={B}] {label} scenario {i} vs unbatched "
+              f"mpc_step: cost {cost:.6f} ({dc:.2e} rel), max|dX| "
+              f"{dx:.2e}, max|dW| {dw:.2e}; alpha {float(pol.alpha[i])} / "
+              f"{float(one.alpha)}")
+        if not (dc <= 1e-3 and dx <= 2e-3 and dw <= 0.5
+                and bool(torch.isfinite(pol.cost).all())):
+            raise AssertionError(f"batched MPC ({label}) scenario {i} "
+                                 f"disagrees with the unbatched solve")
+        return one
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1398,25 +1441,9 @@ def batched_mpc(model, info, B=BATCH, parallel=False):
         raise AssertionError(f"batched MPC costs: finite "
                              f"{np.isfinite(costs).mean()}, distinct "
                              f"{np.unique(costs).size}")
-    ocp = make_ocp(model, info, cfg)
     settings = SqpSettings(num_iterations=cfg.mpc.num_iterations)
-    period = torch.tensor(1.0 / cfg.mpc.mpc_frequency, device=dev)
-    cold = torch.zeros((), dtype=torch.bool, device=dev)
     for i in (0, B - 1):
-        one = mpc_step(ocp, model, info, cfg, settings, batch.t[i],
-                       batch.x[i], type(batch.target)(*[a[i] for a in
-                                                        batch.target]),
-                       type(batch.ms)(*[a[i] for a in batch.ms]),
-                       batch.W_warm[i], batch.X_warm[i], period, cold)
-        dc = abs(float(one.cost) - costs[i]) / max(1.0, abs(float(one.cost)))
-        dx = float((one.X - pol.X[i]).abs().max())
-        dw = float((one.W - pol.W[i]).abs().max())
-        print(f"[batched mpc B={B}] scenario {i} vs unbatched mpc_step: cost "
-              f"{costs[i]:.6f} ({dc:.2e} rel), max|dX| {dx:.2e}, max|dW| "
-              f"{dw:.2e}; alpha {float(pol.alpha[i])} / {float(one.alpha)}")
-        if not (dc <= 1e-3 and dx <= 2e-3 and dw <= 0.5):
-            raise AssertionError(f"batched MPC scenario {i} disagrees with "
-                                 f"the unbatched solve")
+        held("first step (eager)", batch, pol, i, settings)
     state = {"b": new}
 
     def run():
@@ -1430,6 +1457,10 @@ def batched_mpc(model, info, B=BATCH, parallel=False):
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / 10
     peak = torch.cuda.max_memory_allocated()
+    b = state["b"]                        # after 13 steps
+    _, pol_r = _replayed(lambda: step(b))
+    for i in (0, B - 1):
+        held("step 14 (replayed)", b, pol_r, i, settings)
     out = dict(B=B, step_ms=1e3 * step_s, solves_per_s=B / step_s,
                peak_gib=peak / 2 ** 30, first_step_s=first_s)
     print(f"[batched mpc B={B}] N = {cfg.mpc.num_nodes}, 1 SQP iteration: "
@@ -1445,26 +1476,17 @@ def batched_mpc(model, info, B=BATCH, parallel=False):
                           parallel_riccati=True)
         step_p = make_batched_mpc_step(model, info, cfg, par)
         _, pol_p = step_p(batch)
-        one = mpc_step(ocp, model, info, cfg, par, batch.t[0], batch.x[0],
-                       type(batch.target)(*[a[0] for a in batch.target]),
-                       type(batch.ms)(*[a[0] for a in batch.ms]),
-                       batch.W_warm[0], batch.X_warm[0], period, cold)
-        dc = abs(float(one.cost) - float(pol_p.cost[0])) / max(
-            1.0, abs(float(one.cost)))
-        dx = float((one.X - pol_p.X[0]).abs().max())
-        dw = float((one.W - pol_p.W[0]).abs().max())
+        one = held("parallel_riccati=True, first step (eager)", batch,
+                   pol_p, 0, par)
         ms_p = _cuda_ms(lambda: step_p(batch), reps=3)
         out.update(parallel_step_ms=ms_p, parallel_solves_per_s=1e3 * B / ms_p)
         print(f"[batched mpc B={B}] parallel_riccati=True: {ms_p:.1f} ms per "
               f"batched step (median of 3), {1e3 * B / ms_p:.1f} solves/s; "
-              f"scenario 0 vs the unbatched parallel solve: cost "
-              f"{float(pol_p.cost[0]):.6f} ({dc:.2e} rel), max|dX| {dx:.2e}, "
-              f"max|dW| {dw:.2e}; the serial step's cost "
+              f"scenario 0's cost {float(one.cost):.6f}, the serial step's "
               f"{float(pol.cost[0]):.6f}")
-        if not (dc <= 1e-3 and dx <= 2e-3 and dw <= 0.5
-                and bool(torch.isfinite(pol_p.cost).all())):
-            raise AssertionError("the batched step with the parallel "
-                                 "Riccati disagrees with its unbatched solve")
+        # no CUDA graph: the parallel Riccati runs eagerly (mpc.solve_runner)
+        _, pol_pr = step_p(batch)
+        held("parallel_riccati=True, step 5 (eager)", batch, pol_pr, 0, par)
     return out, run
 
 

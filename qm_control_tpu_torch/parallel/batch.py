@@ -26,7 +26,7 @@ from ..config import QmConfig, WbcGains
 from ..gaits.gait import ModeSchedule
 from ..models import centroidal as C
 from ..models.spec import RobotModel
-from ..mpc.mpc import mpc_step
+from ..mpc.mpc import mpc_step, solve_runner
 from ..ocp.problem import make_ocp
 from ..ocp.reference import TargetTrajectory
 from ..runtime.loop import ControlLoop, LoopConfig
@@ -65,7 +65,9 @@ def make_batched_mpc_step(model: RobotModel, info: C.CentroidalInfo,
         return mpc_step(ocp, model, info, cfg, settings, t, x, target, ms,
                         W_warm, X_warm, shift, cold)
 
-    vstep = vmap(one, in_dims=(0, 0, 0, 0, 0, 0, None, None))
+    # replayed as CUDA graphs on the card (one capture per batch signature)
+    vstep = solve_runner(vmap(one, in_dims=(0, 0, 0, 0, 0, 0, None, None)),
+                         settings)
 
     def step(batch: BatchScenario):
         dev = batch.x.device

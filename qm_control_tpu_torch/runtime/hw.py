@@ -20,6 +20,7 @@ WBC is the port's HierarchicalWbc, whose cascade is K1: one K1 launch
 per tick, from the thread that calls tick(); the MPC worker launches
 none.
 """
+import contextlib
 from typing import NamedTuple, Protocol
 
 import torch
@@ -116,7 +117,14 @@ class HardwareLoop:
     `async_mpc=True` (default) solves run on the runtime.mrt worker
     thread paced to mpc_freq, exchanging the policy through the native
     seqlock buffer; `async_mpc=False` solves inline on every
-    ticks_per_mpc-th tick (deterministic, single thread)."""
+    ticks_per_mpc-th tick (deterministic, single thread).
+
+    In the asynchronous mode on the card each tick runs on a stream of
+    the loop's own, ordered after the caller's current stream, which in
+    turn waits for the tick. Beside a worker that replays the solve's
+    CUDA graphs, launches onto the legacy default stream stall (a tick
+    took ~10 s instead of ~0.34 s on an H100; the cause is not known), so
+    the tick keeps off that stream whatever stream its caller is on."""
 
     def __init__(self, model: RobotModel, info, cfg: QmConfig, hw,
                  control_freq: float = 500.0, mpc_freq: float = 100.0,
@@ -137,9 +145,12 @@ class HardwareLoop:
         self._k = 0
         self.async_mpc = async_mpc
         self.mrt = None
+        self._stream = None
         if async_mpc:
             from .mrt import MpcMrtInterface
             self.mrt = MpcMrtInterface(self.solver, mpc_frequency=mpc_freq)
+            if dev.type == "cuda":
+                self._stream = torch.cuda.Stream(device=dev)
         g, f32 = cfg.wbc, dict(dtype=torch.float32, device=dev)
         self._kp = torch.cat([torch.zeros(12, **f32),
                               torch.full((6,), g.kp_arm_wbc, **f32)])
@@ -195,6 +206,21 @@ class HardwareLoop:
             pacer.sleep()
         return pacer.overruns
 
+    @contextlib.contextmanager
+    def _own_stream(self):
+        """The block on the loop's stream, between two waits on the
+        caller's (the class docstring); a no-op without that stream."""
+        if self._stream is None:
+            yield
+            return
+        caller = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(caller)
+        try:
+            with torch.cuda.stream(self._stream):
+                yield
+        finally:
+            caller.wait_stream(self._stream)
+
     def tick(self, target, mode_schedule, base_pos_hint, base_vel_hint):
         """One control tick: read -> estimate -> (MPC) -> WBC -> write.
         The base position / velocity hints stand in for the leg-odometry
@@ -202,6 +228,11 @@ class HardwareLoop:
         the policy evaluation, the WBC data, the cascade and the plant
         substeps each run inside a named record_function range (the
         modules' *_SPAN constants), which a torch.profiler trace shows."""
+        with self._own_stream():
+            return self._tick(target, mode_schedule, base_pos_hint,
+                              base_vel_hint)
+
+    def _tick(self, target, mode_schedule, base_pos_hint, base_vel_hint):
         with record_function(ESTIMATE_SPAN):
             rbd, x_obs = self._estimate(self.hw.read(), base_pos_hint,
                                         base_vel_hint)

@@ -15,6 +15,8 @@ unstable system never produces a diverging rollout. One iteration:
      candidates and nodes in one vmapped call, and the filter picks the
      step. The pick stays on the device (no host read).
 """
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -61,6 +63,30 @@ def _alphas(values, like):
         _ALPHAS[key] = torch.tensor(values, dtype=like.dtype,
                                     device=like.device)
     return _ALPHAS[key]
+
+
+# A CUDA-graph capture of the solve in progress on this thread
+# (mpc/mpc.py's GraphedSolve sets `cut` while it captures): each stage
+# starts a graph segment of its own, and the acceptance after the line
+# search one of glue, so that a replay runs each stage under its range.
+capture_hook = threading.local()
+
+
+def _cut(stage):
+    """Start the capture's next segment (stage None: glue)."""
+    cut = getattr(capture_hook, "cut", None)
+    if cut is not None:
+        cut(stage)
+
+
+@contextlib.contextmanager
+def _stage(name):
+    """The record_function range of one stage, which names it in a
+    torch.profiler trace (~1 us when no profiler runs); under a capture
+    the stage's segment begins here."""
+    _cut(name)
+    with record_function(name):
+        yield
 
 
 def _pick(i1, a):
@@ -225,18 +251,17 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
     vio = d.abs().sum()
     alpha_used = Kfbs = None
     for _ in range(settings.num_iterations):
-        # the ranges name the stages in a torch.profiler trace (and cost
-        # ~1 us each when no profiler runs)
-        with record_function("sqp.linearize"):
+        with _stage("sqp.linearize"):
             A, B, lx, lu, lxx, luu, lux = linearize_nodes(node_data, X[:-1],
                                                           W)
             _, VxN, VxxN = final_quad(final_data, X[-1])
             VxxN = 0.5 * (VxxN + VxxN.T)
-        with record_function("sqp.riccati"):
+        with _stage("sqp.riccati"):
             kffs, Kfbs = backward(A, B, lx, lu, lxx, luu, lux, d, VxN, VxxN)
-        with record_function("sqp.line_search"):
+        with _stage("sqp.line_search"):
             Xc, Wc = linear_forward(X, W, A, B, d, kffs, Kfbs)
             _, cc, dc = merit(Xc, Wc)
+        _cut(None)
         vc = dc.abs().sum((-1, -2))
         finite = torch.isfinite(cc) & torch.isfinite(vc)
         inf = torch.full_like(cc, float("inf"))

@@ -5,7 +5,9 @@ One inline HardwareLoop tick that solves and one that does not (horizon
 CPU profiler session, and one make_batched_mpc_step call at B = 2: every
 stage range of the modules' *_SPAN constants is on the tick's thread,
 nests where the modules say, and appears as often as the stage runs.
-RepeatedTimer times the card's stream with CUDA events (a card test).
+RepeatedTimer times the card's stream with CUDA events, and a traced
+replay of a solve captured as CUDA graphs still shows each stage range
+once, with its kernels linked under it (card tests).
 """
 from typing import NamedTuple
 
@@ -181,3 +183,46 @@ def test_repeated_timer_times_the_card_stream():
     st = t.stats()
     kernel_ms = k0.elapsed_time(k1)
     assert kernel_ms > 0.1 and st["min_ms"] >= kernel_ms
+
+
+@pytest.mark.card
+def test_a_graph_replay_keeps_the_stage_ranges():
+    """A warm solve replayed from CUDA graphs (mpc/mpc.py GraphedSolve),
+    traced: mpc.solve and each sqp.* range once on the host, each sqp.*
+    range with device events launched under it (a kernel's host op lies
+    inside the range), as qmbench/spans.py's readers link them."""
+    if not torch.cuda.is_available():
+        pytest.skip("CUDA graphs replay on the card: needs a card")
+    from torch.autograd import DeviceType
+    cfg = _default_cfg(**HORIZON)
+    model, info, q0, s = _standing_setup(cfg)
+    x0 = observation_from_rbd(model, info, rbd_state_from_plant(
+        model, torch.as_tensor(q0), torch.zeros(24))).cuda()
+    target = target_from_knots([0.0, 3.0], [s, s], device="cuda")
+    ms = GaitSchedule(GAIT_LIBRARY["stance"]).mode_schedule(0.0, 3.0,
+                                                           device="cuda")
+    solver = M.MpcSolver(model, info, cfg, device="cuda")
+    for k in range(2):                  # eager, then the capture
+        solver.solve(0.01 * k, x0, target, ms)
+    replays = M.graph_replays
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        solver.solve(0.02, x0, target, ms)
+        torch.cuda.synchronize()
+    assert M.graph_replays == replays + 1
+    events = prof.profiler.kineto_results.events()
+    host = [e for e in events if e.device_type() == DeviceType.CPU]
+    ranges = {name: [(e.start_ns(), e.end_ns()) for e in host
+                     if e.is_user_annotation() and e.name() == name]
+              for name in (M.SOLVE_SPAN, *SQP)}
+    assert all(len(r) == 1 for r in ranges.values()), ranges
+    ops = {e.correlation_id(): e for e in host
+           if not e.is_user_annotation() and not e.linked_correlation_id()}
+    for name in SQP:
+        (a, b), = ranges[name]
+        under = [e for e in events if e.device_type() != DeviceType.CPU
+                 and not e.is_user_annotation()
+                 and e.linked_correlation_id() in ops
+                 and a <= ops[e.linked_correlation_id()].start_ns()
+                 and ops[e.linked_correlation_id()].end_ns() <= b]
+        assert under, name
