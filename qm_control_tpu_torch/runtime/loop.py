@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..config import QmConfig, WbcGains
 from ..gaits.gait import STANCE, ModeSchedule, contact_flags_from_mode
@@ -43,6 +44,17 @@ from .estimator import observation_from_rbd, rbd_state_from_plant, rbd_to_qv
 from .plant import (HybridCommand, PlantConfig, PlantState, init_plant_state,
                     make_plant_step, push_command)
 from .safety import safety_check
+
+# the record_function ranges of one control tick (wbc.*, mpc.evaluate and
+# plant.step nest inside it) and of the ground-truth estimator pass, in
+# each tick and before each cycle's solve
+TICK_SPAN = "loop.tick"
+ESTIMATE_SPAN = "loop.estimate"
+
+# ticks and cycles run since import, one per call: a vmapped batched tick
+# or cycle counts once, as K1's launch_count counts its one launch
+tick_count = 0
+cycle_count = 0
 
 
 class LoopConfig(NamedTuple):
@@ -130,8 +142,17 @@ def make_tick(model: RobotModel, info: C.CentroidalInfo,
 
     def tick(plant: PlantState, input_last, t, safe, policy: MpcPolicy,
              yaw_ref, gains: WbcGains, tau_max, safety_cost=None):
-        rbd_t = rbd_state_from_plant(model, plant.q, plant.v)
-        x_t = observation_from_rbd(model, info, rbd_t, yaw_ref)
+        global tick_count
+        tick_count += 1
+        with record_function(TICK_SPAN):
+            return _tick(plant, input_last, t, safe, policy, yaw_ref, gains,
+                         tau_max, safety_cost)
+
+    def _tick(plant, input_last, t, safe, policy, yaw_ref, gains, tau_max,
+              safety_cost):
+        with record_function(ESTIMATE_SPAN):
+            rbd_t = rbd_state_from_plant(model, plant.q, plant.v)
+            x_t = observation_from_rbd(model, info, rbd_t, yaw_ref)
         x_des, u_des, mode = evaluate_policy(
             policy, t + loop_cfg.delay_compensation_s)
         q_meas, v_meas = rbd_to_qv(rbd_t)
@@ -192,8 +213,9 @@ def make_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
             _check_depth(carry.policy, max(1, lag))
 
     def solve(carry, target, ms, shift, ee_wrench=None):
-        rbd = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)
-        x_obs = observation_from_rbd(model, info, rbd, carry.last_yaw)
+        with record_function(ESTIMATE_SPAN):
+            rbd = rbd_state_from_plant(model, carry.plant.q, carry.plant.v)
+            x_obs = observation_from_rbd(model, info, rbd, carry.last_yaw)
         policy = mpc_step(ocp, model, info, cfg, settings, carry.t, x_obs,
                           target, ms, carry.W_warm, carry.X_warm, shift,
                           warm, ee_wrench=ee_wrench)
@@ -201,6 +223,8 @@ def make_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
 
     def cycle(carry: CycleCarry, target: TargetTrajectory, ms: ModeSchedule,
               gains: WbcGains):
+        global cycle_count
+        cycle_count += 1
         _check_policy_depth(carry)
         # --- estimator + MPC solve (the reference's MPC thread) ---
         x_obs, policy = solve(
