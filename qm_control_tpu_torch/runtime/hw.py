@@ -34,8 +34,8 @@ from ..models.spec import RobotModel
 from .estimator import (ImuEstimatorState, imu_estimator_update,
                         imu_from_plant, init_imu_estimator,
                         observation_from_rbd, rbd_to_qv)
-from .plant import (HybridCommand, PlantConfig, PlantState, init_plant_state,
-                    make_plant_step, push_command)
+from .plant import (GraphedPlantWrite, HybridCommand, PlantConfig,
+                    PlantState, init_plant_state, make_plant_step)
 
 
 class HWReading(NamedTuple):
@@ -67,14 +67,16 @@ class SimHardware:
     ContactSensorInterface role), the IMU from the plant state.
     `imu_noise` is a torch.Generator passed to imu_from_plant without
     sigmas, as the JAX package passes its key, so it draws but adds no
-    noise (ROADMAP Queue 3)."""
+    noise (ROADMAP Queue 3). A write goes through plant.GraphedPlantWrite:
+    on the card its substeps replay as CUDA graphs from the second write
+    on."""
 
     def __init__(self, model: RobotModel, q0, cfg: PlantConfig = PlantConfig(),
                  substeps: int = 2, imu_noise=None, device="cuda"):
         self.model = model
         self.state: PlantState = init_plant_state(q0, model=model,
                                                   device=resolve_device(device))
-        self._step = make_plant_step(model, cfg)
+        self._write = GraphedPlantWrite(make_plant_step(model, cfg))
         self.substeps = substeps
         self.imu_noise = imu_noise
         self._t = 0.0
@@ -97,9 +99,7 @@ class SimHardware:
         return 40000.0 * torch.clamp(-p[:, 2], min=0.0)  # PlantConfig.contact_kp
 
     def write(self, cmd: HybridCommand) -> None:
-        self.state = push_command(self.state, cmd)
-        for _ in range(self.substeps):
-            self.state, _ = self._step(self.state)
+        self.state = self._write(self.state, cmd, self.substeps)
         self._t += self.substeps * self._dt
 
 
