@@ -1376,11 +1376,12 @@ def _device_profile(fn):
 
 def _replayed(fn):
     """fn(), asserting that it replayed the batched step's CUDA graphs
-    (mpc/mpc.py GraphedSolve) rather than ran it eagerly or captured."""
-    from qm_control_tpu_torch.mpc import mpc as M
-    before = (M.eager_calls, M.graph_captures, M.graph_replays)
+    (the graph runner "mpc" of mpc/mpc.py solve_runner) rather than ran
+    it eagerly or captured."""
+    from qm_control_tpu_torch.utils.graphs import counts
+    before = counts("mpc")
     out = fn()
-    after = (M.eager_calls, M.graph_captures, M.graph_replays)
+    after = counts("mpc")
     if tuple(b - a for a, b in zip(before, after)) != (0, 0, 1):
         raise AssertionError(f"phase 6: the batched step did not replay "
                              f"(eager, captures, replays) {before} -> "

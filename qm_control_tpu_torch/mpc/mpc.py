@@ -8,19 +8,16 @@ the previous (X, W) are shifted onto the new horizon by interpolation at
 the fractional node positions, the tail repeating the last value
 (coldStart false, task.info:135).
 
-`GraphedSolve` replays a solve as CUDA graphs on the card: its callers
+`solve_runner` replays a solve as CUDA graphs on the card: its callers
 outside any transform (`MpcSolver.solve`, and parallel/batch.py's batched
 step) pay the host's dispatch of ~37k eager ops once per input signature
-instead of once per call (`solve_runner`: solves without LU solves).
+instead of once per call (solves without LU solves).
 """
-import threading
 from typing import NamedTuple, Optional
 
 import torch
-from torch._C._profiler import _RecordFunctionFast
 from torch.func import vmap
 from torch.profiler import record_function
-from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..config import QmConfig
 from ..gaits.gait import ModeSchedule, mode_at_time
@@ -28,8 +25,8 @@ from ..models import centroidal as C
 from ..models.spec import RobotModel
 from ..ocp.problem import make_node_data, make_ocp
 from ..ocp.reference import TargetTrajectory
-from ..solver import sqp as _sqp
 from ..solver.sqp import SqpSettings, sqp_solve
+from ..utils.graphs import GraphRunner
 
 
 class MpcPolicy(NamedTuple):
@@ -148,169 +145,15 @@ def mpc_step(ocp, model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
                          defect=sol.defect)
 
 
-# How often GraphedSolve engages, since import: calls run eagerly (CPU
-# tensors, or a key's first call), captures, and replays (the capturing
-# call replays too). Its hit share is graph_replays / all calls.
-eager_calls = 0
-graph_captures = 0
-graph_replays = 0
-_COUNT_LOCK = threading.Lock()      # solvers may run on several threads
-
-# the record_function range around a capture; the host op under which
-# each segment replays, so that a trace links the segment's kernels to an
-# op inside the stage's range
-CAPTURE_SPAN = "mpc.graph_capture"
-REPLAY_OP = "mpc.graph_replay"
-
-
-def _key(leaves, spec):
-    """A call's input signature: the pytree structure, each tensor's
-    shape, dtype and device, every other leaf by value (by identity where
-    it has no hash)."""
-    parts = []
-    for a in leaves:
-        if isinstance(a, torch.Tensor):
-            parts.append((tuple(a.shape), a.dtype, a.device))
-        else:
-            try:
-                hash(a)
-                parts.append(a)
-            except TypeError:
-                parts.append(("id", id(a)))
-    return spec, tuple(parts)
-
-
-class _Graphs:
-    """One capture of fn on static inputs: a CUDA graph per segment, all in
-    the memory pool `pool`, replayed in the order they were captured."""
-
-    def __init__(self, fn, leaves, spec, pool):
-        global graph_captures
-        dev = next(a.device for a in leaves if isinstance(a, torch.Tensor))
-        self.leaves = [a.clone() if isinstance(a, torch.Tensor) else a
-                       for a in leaves]
-        self.inputs = [a for a in self.leaves if isinstance(a, torch.Tensor)]
-        self.segments = []          # [(stage range or None, CUDAGraph)]
-        self.stream = torch.cuda.current_stream(dev)
-        self._pool = pool
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()    # the first call's cache, for the pool
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(self.stream)
-        with record_function(CAPTURE_SPAN), torch.cuda.stream(side):
-            self._begin(None)
-            _sqp.capture_hook.cut = self._cut
-            try:
-                out = fn(*tree_unflatten(self.leaves, spec))
-            finally:        # never leave the thread capturing
-                _sqp.capture_hook.cut = None
-                self.segments[-1][1].capture_end()
-        self.stream.wait_stream(side)
-        self.out, self.out_spec = tree_flatten(out)
-        with _COUNT_LOCK:
-            graph_captures += 1
-
-    def _begin(self, stage):
-        g = torch.cuda.CUDAGraph()
-        self.segments.append((stage, g))
-        g.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-
-    def _cut(self, stage):
-        self.segments[-1][1].capture_end()
-        self._begin(stage)
-
-    def __call__(self, leaves):
-        global graph_replays
-        stream = torch.cuda.current_stream(self.inputs[0].device)
-        if stream != self.stream:   # the last replay may still read inputs
-            stream.wait_stream(self.stream)
-            self.stream = stream
-        for s, a in zip(self.inputs,
-                        (a for a in leaves if isinstance(a, torch.Tensor))):
-            s.copy_(a)
-        with record_function(SOLVE_SPAN):
-            for stage, g in self.segments:
-                if stage is None:
-                    with _RecordFunctionFast(REPLAY_OP):
-                        g.replay()
-                else:
-                    with record_function(stage), \
-                            _RecordFunctionFast(REPLAY_OP):
-                        g.replay()
-        with _COUNT_LOCK:
-            graph_replays += 1
-        return tree_unflatten([a.clone() if isinstance(a, torch.Tensor)
-                               else a for a in self.out], self.out_spec)
-
-
-class GraphedSolve:
-    """fn(*args) (mpc_step, or a vmap of it) replayed as CUDA graphs.
-
-    A call's key is its input signature (`_key`). On CPU tensors fn runs
-    eagerly. On the card a key's first call runs eagerly (it fills the
-    solver's constant caches, cuBLAS's handles and the allocator); its
-    second captures fn, cut into consecutive segments at the SQP stages
-    (solver/sqp.py: glue, sqp.linearize, sqp.riccati, sqp.line_search,
-    glue, per iteration) that share one memory pool, and replays them;
-    every later call copies its tensors into the capture's inputs and
-    replays on the caller's current stream. Each segment replays under
-    its stage's range, all inside mpc.solve, so a trace still names the
-    stages (though it links only part of a replayed graph's kernels to
-    them; CUDA events around each segment's replay time it whole). A
-    call returns fresh tensors (clones of the capture's
-    outputs): a replay never writes into a tensor a caller holds.
-
-    Each captured key keeps its graphs, static inputs and outputs for as
-    long as the runner lives, so a runner should see few signatures (a
-    fleet step one batch shape, or a few). Its keys' captures share one
-    memory pool: a capture reuses what an earlier one freed, so the pool
-    holds about the largest capture's working memory, not their sum. That
-    is safe because a key's outputs are cloned right after its replay,
-    before another key replays over them; one runner serves one thread at
-    a time."""
-
-    SEEN = 8            # keys seen once that are remembered, newest kept
-
-    def __init__(self, fn):
-        self.fn = fn
-        self._graphs = {}
-        self._seen = {}     # key -> its non-tensor leaves (ids stay taken)
-        self._pool = None   # the captures' memory pool, from the first one
-
-    def __call__(self, *args):
-        global eager_calls
-        leaves, spec = tree_flatten(args)
-        tensors = [a for a in leaves if isinstance(a, torch.Tensor)]
-        graphs = None
-        if tensors and all(a.is_cuda for a in tensors):
-            key = _key(leaves, spec)
-            graphs = self._graphs.get(key)
-            if graphs is None and key in self._seen:
-                if self._pool is None:
-                    self._pool = torch.cuda.graph_pool_handle()
-                graphs = self._graphs[key] = _Graphs(self.fn, leaves, spec,
-                                                     self._pool)
-                del self._seen[key]
-            elif graphs is None:
-                self._seen[key] = [a for a in leaves
-                                   if not isinstance(a, torch.Tensor)]
-                if len(self._seen) > self.SEEN:
-                    del self._seen[next(iter(self._seen))]
-        if graphs is None:
-            with _COUNT_LOCK:
-                eager_calls += 1
-            return self.fn(*args)
-        return graphs(leaves)
-
-
 def solve_runner(fn, settings: SqpSettings):
-    """What runs fn, a solve with `settings`: GraphedSolve(fn), or fn
-    itself (eagerly) where the solve takes LU solves (the parallel
-    Riccati of solver/pariccati.py, or `unrolled_ops` off): batched
-    torch.linalg.solve_ex of 30 x 30 systems fails under a CUDA-graph
-    capture on the card from a batch of 17 (an H100, torch 2.11)."""
+    """What runs fn, a solve with `settings`: the graph runner "mpc"
+    (utils/graphs.py), or fn itself (eagerly) where the solve takes LU
+    solves (the parallel Riccati of solver/pariccati.py, or `unrolled_ops`
+    off): batched torch.linalg.solve_ex of 30 x 30 systems fails under a
+    CUDA-graph capture on the card from a batch of 17 (an H100, torch
+    2.11)."""
     lu = settings.parallel_riccati or not settings.unrolled_ops
-    return fn if lu else GraphedSolve(fn)
+    return fn if lu else GraphRunner(fn, "mpc", span=SOLVE_SPAN)
 
 
 class MpcSolver:

@@ -31,11 +31,12 @@ from ..config import QmConfig
 from ..gaits.gait import contact_flags_from_mode
 from ..models import kinematics as K
 from ..models.spec import RobotModel
+from ..utils.graphs import GraphRunner
 from .estimator import (ImuEstimatorState, imu_estimator_update,
                         imu_from_plant, init_imu_estimator,
                         observation_from_rbd, rbd_to_qv)
-from .plant import (GraphedPlantWrite, HybridCommand, PlantConfig,
-                    PlantState, init_plant_state, make_plant_step)
+from .plant import (STEP_SPAN, HybridCommand, PlantConfig, PlantState,
+                    init_plant_state, make_plant_step, plant_write)
 
 
 class HWReading(NamedTuple):
@@ -67,16 +68,17 @@ class SimHardware:
     ContactSensorInterface role), the IMU from the plant state.
     `imu_noise` is a torch.Generator passed to imu_from_plant without
     sigmas, as the JAX package passes its key, so it draws but adds no
-    noise (ROADMAP Queue 3). A write goes through plant.GraphedPlantWrite:
-    on the card its substeps replay as CUDA graphs from the second write
-    on."""
+    noise (ROADMAP Queue 3). A write is plant.plant_write through the
+    graph runner "plant" (utils/graphs.py): on the card its substeps
+    replay as CUDA graphs, one per substep, from the second write on."""
 
     def __init__(self, model: RobotModel, q0, cfg: PlantConfig = PlantConfig(),
                  substeps: int = 2, imu_noise=None, device="cuda"):
         self.model = model
         self.state: PlantState = init_plant_state(q0, model=model,
                                                   device=resolve_device(device))
-        self._write = GraphedPlantWrite(make_plant_step(model, cfg))
+        self._step = make_plant_step(model, cfg)
+        self._write = GraphRunner(plant_write, "plant", first=STEP_SPAN)
         self.substeps = substeps
         self.imu_noise = imu_noise
         self._t = 0.0
@@ -99,7 +101,7 @@ class SimHardware:
         return 40000.0 * torch.clamp(-p[:, 2], min=0.0)  # PlantConfig.contact_kp
 
     def write(self, cmd: HybridCommand) -> None:
-        self.state = self._write(self.state, cmd, self.substeps)
+        self.state = self._write(self._step, self.state, cmd, self.substeps)
         self._t += self.substeps * self._dt
 
 

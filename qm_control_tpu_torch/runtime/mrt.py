@@ -18,13 +18,13 @@ thread's stream: the publisher records an event after it, and the worker
 waits for that event on its stream and marks the tensors as used there.
 The worker copies each policy to the host once per solve; the control
 thread never touches a device tensor of the worker. While the worker
-replays a solve's CUDA graphs (mpc.mpc.GraphedSolve), the control
+replays a solve's CUDA graphs (mpc.mpc.solve_runner), the control
 thread's own launches should not go to the legacy default stream, where
 they stall: runtime/hw.py's HardwareLoop ticks on a stream of its own.
-Both threads
-differentiate in forward mode, which torch does not make thread-safe:
-models/_fwd.py serializes those calls, so the tick's WBC waits while the
-solve linearizes.
+Both threads differentiate in forward mode, which torch does not make
+thread-safe: models/_fwd.py serializes those calls, so the tick's WBC
+waits while the solve linearizes; and both capture CUDA graphs, which
+utils/graphs.py lets one thread do at a time.
 """
 import threading
 import time

@@ -7,22 +7,20 @@ State is a NamedTuple of tensors; every update returns a new state (no
 in-place writes), and nothing is read back to the host, so a tick stays
 asynchronous on the card.
 
-`GraphedPlantWrite` runs one write of the hardware seam (`plant_write`:
-push_command, then the substeps) and on the card replays it as CUDA
-graphs, so the host dispatches the write's ~2.9k eager ops once per input
-signature instead of once per write.
+`plant_write` is one write of the hardware seam (push_command, then the
+substeps); `SimHardware.write` replays it as CUDA graphs on the card
+(utils/graphs.py), so the host dispatches the write's ~2.9k eager ops
+once per input signature instead of once per write.
 """
-import threading
 from typing import NamedTuple
 
 import torch
-from torch._C._profiler import _RecordFunctionFast
 from torch.profiler import record_function
-from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..models import dynamics as D
 from ..models import kinematics as K
 from ..models.spec import CONTACT_FRAMES, EE_FRAME, NQ, NUM_JOINTS, RobotModel
+from ..utils.graphs import segment
 
 MAX_DELAY_STEPS = 32
 
@@ -186,118 +184,15 @@ def make_plant_step(model: RobotModel, cfg: PlantConfig):
 
 
 def plant_write(step, state: PlantState, cmd: HybridCommand,
-                substeps: int, cut=None) -> PlantState:
+                substeps: int) -> PlantState:
     """One write of the hardware seam: push `cmd` into the delay line, then
-    `substeps` calls of `step` (make_plant_step's). `cut()`, where given,
-    runs between two substeps."""
+    `substeps` calls of `step` (make_plant_step's). Under a CUDA-graph
+    capture each substep is a segment of its own (utils/graphs.segment),
+    replayed in a plant.step range, push_command in the first."""
     state = push_command(state, cmd)
     for i in range(substeps):
-        if i and cut is not None:
-            cut()
+        if i:
+            segment(STEP_SPAN)
         state, _ = step(state)
     return state
 
-
-# How often GraphedPlantWrite engages, since import: writes run eagerly
-# (CPU tensors, or a key's first write), captures, and replays (the
-# capturing write replays too). Its hit share is graph_replays / all writes.
-eager_writes = 0
-graph_captures = 0
-graph_replays = 0
-_COUNT_LOCK = threading.Lock()      # writes may come from several threads
-
-# the host op under which each substep's segment replays, inside its
-# plant.step range, so that a trace links the segment's kernels to it
-REPLAY_OP = "plant.graph_replay"
-
-
-class _WriteGraphs:
-    """One capture of plant_write on static inputs: a CUDA graph per
-    substep (push_command in the first), in one memory pool, replayed in
-    order."""
-
-    def __init__(self, step, leaves, spec, substeps):
-        global graph_captures
-        dev = leaves[0].device
-        self.inputs = [a.clone() for a in leaves]
-        self.graphs = []
-        self.stream = torch.cuda.current_stream(dev)
-        self._pool = torch.cuda.graph_pool_handle()
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(self.stream)
-        with torch.cuda.stream(side):
-            self._begin()
-            try:
-                out = plant_write(step, *tree_unflatten(self.inputs, spec),
-                                  substeps, cut=self._cut)
-            finally:        # never leave the thread capturing
-                self.graphs[-1].capture_end()
-        self.stream.wait_stream(side)
-        self.out, self.out_spec = tree_flatten(out)
-        with _COUNT_LOCK:
-            graph_captures += 1
-
-    def _begin(self):
-        g = torch.cuda.CUDAGraph()
-        self.graphs.append(g)
-        g.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-
-    def _cut(self):
-        self.graphs[-1].capture_end()
-        self._begin()
-
-    def __call__(self, leaves):
-        global graph_replays
-        stream = torch.cuda.current_stream(self.inputs[0].device)
-        if stream != self.stream:   # the last replay may still read inputs
-            stream.wait_stream(self.stream)
-            self.stream = stream
-        for s, a in zip(self.inputs, leaves):
-            s.copy_(a)
-        for g in self.graphs:
-            with record_function(STEP_SPAN), _RecordFunctionFast(REPLAY_OP):
-                g.replay()
-        with _COUNT_LOCK:
-            graph_replays += 1
-        return tree_unflatten([a.clone() for a in self.out], self.out_spec)
-
-
-class GraphedPlantWrite:
-    """plant_write(step, state, cmd, substeps), replayed as CUDA graphs on
-    the card (the protocol of mpc.mpc.GraphedSolve).
-
-    A write's key is `substeps` and the shape, dtype and device of each
-    tensor of (state, cmd). On CPU tensors the write runs eagerly. On the
-    card a key's first write runs eagerly (it fills the models' constant
-    caches, the cuBLAS and cuSOLVER handles and the allocator); its
-    second captures the write on a side stream, one CUDA graph per
-    substep, and replays them; every later write copies (state, cmd) into
-    the capture's inputs and replays on the caller's current stream. Each
-    segment replays inside its own plant.step range, so a trace keeps one
-    per substep. A write returns fresh tensors (clones of the capture's
-    outputs): a replay never writes into a state a caller holds."""
-
-    def __init__(self, step):
-        self.step = step
-        self._graphs = {}
-        self._seen = set()
-
-    def __call__(self, state: PlantState, cmd: HybridCommand,
-                 substeps: int) -> PlantState:
-        global eager_writes
-        leaves, spec = tree_flatten((state, cmd))
-        graphs = None
-        if all(a.is_cuda for a in leaves):
-            key = (substeps, spec, tuple((tuple(a.shape), a.dtype, a.device)
-                                         for a in leaves))
-            graphs = self._graphs.get(key)
-            if graphs is None and key in self._seen:
-                graphs = self._graphs[key] = _WriteGraphs(
-                    self.step, leaves, spec, substeps)
-            elif graphs is None:
-                self._seen.add(key)
-        if graphs is None:
-            with _COUNT_LOCK:
-                eager_writes += 1
-            return plant_write(self.step, state, cmd, substeps)
-        return graphs(leaves)

@@ -16,12 +16,13 @@ unstable system never produces a diverging rollout. One iteration:
      step. The pick stays on the device (no host read).
 """
 import contextlib
-import threading
 from typing import NamedTuple
 
 import torch
 from torch.func import vmap
 from torch.profiler import record_function
+
+from ..utils.graphs import segment
 
 
 class SqpSettings(NamedTuple):
@@ -65,26 +66,12 @@ def _alphas(values, like):
     return _ALPHAS[key]
 
 
-# A CUDA-graph capture of the solve in progress on this thread
-# (mpc/mpc.py's GraphedSolve sets `cut` while it captures): each stage
-# starts a graph segment of its own, and the acceptance after the line
-# search one of glue, so that a replay runs each stage under its range.
-capture_hook = threading.local()
-
-
-def _cut(stage):
-    """Start the capture's next segment (stage None: glue)."""
-    cut = getattr(capture_hook, "cut", None)
-    if cut is not None:
-        cut(stage)
-
-
 @contextlib.contextmanager
 def _stage(name):
     """The record_function range of one stage, which names it in a
-    torch.profiler trace (~1 us when no profiler runs); under a capture
-    the stage's segment begins here."""
-    _cut(name)
+    torch.profiler trace (~1 us when no profiler runs); under a CUDA-graph
+    capture the stage's segment begins here (utils/graphs.segment)."""
+    segment(name)
     with record_function(name):
         yield
 
@@ -261,7 +248,7 @@ def sqp_solve(dynamics, stage_cost, final_cost, node_data, final_data,
         with _stage("sqp.line_search"):
             Xc, Wc = linear_forward(X, W, A, B, d, kffs, Kfbs)
             _, cc, dc = merit(Xc, Wc)
-        _cut(None)
+        segment(None)       # the acceptance: glue
         vc = dc.abs().sum((-1, -2))
         finite = torch.isfinite(cc) & torch.isfinite(vc)
         inf = torch.full_like(cc, float("inf"))

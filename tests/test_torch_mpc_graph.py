@@ -1,11 +1,13 @@
-"""mpc/mpc.py's GraphedSolve: the MPC solve replayed as CUDA graphs.
+"""mpc/mpc.py's solve_runner: the MPC solve replayed as CUDA graphs by the
+graph runner "mpc" (utils/graphs.py, tested on its own in
+test_torch_graphs.py).
 
 On the CPU (tier 1): the runner calls its function eagerly on CPU tensors
 and returns what it returns, bit for bit, counting eager calls and never a
 capture (MpcSolver.solve and the batched step alike); a solve with LU
-solves (the parallel Riccati, or unrolled_ops off) gets no runner; a call's key is the input signature; the SQP stages cut a capture into glue, sqp.linearize,
-sqp.riccati, sqp.line_search, glue per iteration (also with the parallel
-Riccati).
+solves (the parallel Riccati, or unrolled_ops off) gets no runner; the
+SQP stages cut a capture into glue, sqp.linearize, sqp.riccati,
+sqp.line_search, glue per iteration (also with the parallel Riccati).
 
 On the card (marker `card`; skipped without one, and run there with
 `python3 -m pytest tests/test_torch_mpc_graph.py --noconftest`): the
@@ -14,9 +16,8 @@ throughout) and MpcSolver.solve (one cold solve, then 3 warm ones) at full width
 what eager mpc_step gives, within 1e-6 relative; the counters read 1
 eager call, 1 capture and replays for the rest; a policy returned by
 call n is unchanged after call n+1; two batch shapes through one step
-alternate, each replaying its own capture from the runner's one pool; a
-runner remembers its 8 newest keys seen once; the asynchronous MRT
-worker captures once on its own thread and replays; the asynchronous
+alternate, each replaying its own capture from the runner's one pool;
+the asynchronous MRT worker captures once on its own thread and replays; the asynchronous
 HardwareLoop ticks on its own stream and leaves its caller's alone.
 This file imports no JAX.
 """
@@ -26,7 +27,6 @@ import numpy as np
 import pytest
 import torch
 from torch.func import vmap
-from torch.utils._pytree import tree_flatten
 
 from qm_control_tpu_torch.experiments import _default_cfg, _standing_setup
 from qm_control_tpu_torch.gaits.library import GAIT_LIBRARY, GaitSchedule
@@ -37,8 +37,8 @@ from qm_control_tpu_torch.parallel import (BatchScenario,
                                            make_batched_mpc_step)
 from qm_control_tpu_torch.runtime.estimator import (observation_from_rbd,
                                                     rbd_state_from_plant)
-from qm_control_tpu_torch.solver import sqp as S
 from qm_control_tpu_torch.solver.sqp import SqpSettings
+from qm_control_tpu_torch.utils import graphs as G
 
 SMALL = dict(horizon=0.12, dt=0.04)
 SQP = ("sqp.linearize", "sqp.riccati", "sqp.line_search")
@@ -52,7 +52,7 @@ def _card():
 
 
 def _counters():
-    return M.eager_calls, M.graph_captures, M.graph_replays
+    return G.counts("mpc")
 
 
 def _delta(before):
@@ -132,8 +132,8 @@ def _solve_args(cfg, model, info, x0, target, ms, cold, W=None, X=None):
 
 def test_cpu_calls_run_eagerly_and_return_what_mpc_step_returns(small):
     cfg, model, info, x0, target, ms = small
-    run = M.GraphedSolve(M.mpc_step)
     args = _solve_args(cfg, model, info, x0, target, ms, True)
+    run = M.solve_runner(M.mpc_step, args[4])
     before = _counters()
     cold = run(*args)
     warm_args = _solve_args(cfg, model, info, x0, target, ms, False,
@@ -173,37 +173,12 @@ def test_only_solves_without_lu_get_a_runner(small, parallel, unrolled,
                            unrolled_ops=unrolled)
     solver = M.MpcSolver(model, info, cfg, settings=settings, device="cpu")
     if graphed:
-        assert isinstance(solver._step, M.GraphedSolve)
+        assert isinstance(solver._step, G.GraphRunner)
         assert solver._step.fn is M.mpc_step
+        assert (solver._step.name, solver._step.span) == ("mpc",
+                                                          M.SOLVE_SPAN)
     else:
         assert solver._step is M.mpc_step
-
-
-def _tensor(shape=(2, 3), dtype=torch.float32):
-    return torch.zeros(shape, dtype=dtype)
-
-
-class _Unhashable:
-    __hash__ = None
-
-
-_SHARED = _Unhashable()
-
-
-@pytest.mark.parametrize("other, same", [
-    ((_tensor(), 1.0, _SHARED), True),          # values do not matter
-    ((_tensor((3, 2)), 1.0, _SHARED), False),   # a shape
-    ((_tensor(dtype=torch.float64), 1.0, _SHARED), False),   # a dtype
-    ((_tensor(), 2.0, _SHARED), False),         # a non-tensor leaf's value
-    ((_tensor(), 1.0, _Unhashable()), False),   # an unhashable leaf's id
-    (((_tensor(),), 1.0, _SHARED), False),      # the structure
-], ids=["values", "shape", "dtype", "leaf", "identity", "structure"])
-def test_a_key_is_the_input_signature(other, same):
-    def key(args):
-        leaves, spec = tree_flatten(args)
-        return M._key(leaves, spec)
-    base = (torch.ones(2, 3), 1.0, _SHARED)
-    assert (key(base) == key(other)) is same
 
 
 @pytest.mark.parametrize("iterations", [1, 2])
@@ -219,11 +194,11 @@ def test_the_stages_cut_a_capture_into_segments(small, iterations,
     args = list(_solve_args(cfg, model, info, x0, target, ms, True))
     args[4] = SqpSettings(num_iterations=iterations,
                           parallel_riccati=parallel)
-    S.capture_hook.cut = cuts.append
+    G._capture.cut = cuts.append
     try:
         policy = M.mpc_step(*args)
     finally:
-        S.capture_hook.cut = None
+        G._capture.cut = None
     assert cuts == [*SQP, None] * iterations
     assert torch.isfinite(policy.cost)
     M.mpc_step(*args)
@@ -293,21 +268,6 @@ def test_two_batch_shapes_alternate_through_one_step(full):
         torch.cuda.synchronize()
         _assert_close(got, want, f"call {n}, B = {batches[i].x.shape[0]}")
     assert _delta(before) == (2, 2, 4)
-
-
-@pytest.mark.card
-def test_a_runner_remembers_few_keys_and_shares_one_pool():
-    dev = _card()
-    run = M.GraphedSolve(lambda x: (2.0 * x + 1.0).sin())
-    xs = [torch.linspace(0, 1, n, device=dev) for n in range(1, 11)]
-    for x in xs:
-        run(x)
-    assert len(run._seen) == M.GraphedSolve.SEEN and not run._graphs
-    before = _counters()
-    for x in (xs[0], xs[-1], xs[-2], xs[-1]):   # xs[0] was forgotten
-        assert torch.equal(run(x), (2.0 * x + 1.0).sin())
-    assert _delta(before) == (1, 2, 3)
-    assert [g._pool for g in run._graphs.values()] == [run._pool] * 2
 
 
 @pytest.mark.card
@@ -391,13 +351,13 @@ def test_the_async_loop_ticks_on_its_own_stream():
     loop.start(target, ms, hw.state.q[:3], hw.state.v[:3])
     try:
         deadline = time.time() + 180
-        while M.graph_replays - before[2] < 3 and time.time() < deadline:
+        while _counters()[2] - before[2] < 3 and time.time() < deadline:
             tick()
-        replays = M.graph_replays
+        replays = _counters()[2]
         times = [tick() for _ in range(5)]
     finally:
         loop.stop()
     assert torch.cuda.current_stream(dev) == default
-    assert M.graph_replays - before[2] >= 3, "the worker never replayed"
-    assert M.graph_replays > replays, "no solve beside the timed ticks"
+    assert _counters()[2] - before[2] >= 3, "the worker never replayed"
+    assert _counters()[2] > replays, "no solve beside the timed ticks"
     assert sorted(times)[2] < 2.0, times

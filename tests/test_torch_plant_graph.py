@@ -1,12 +1,14 @@
-"""runtime/plant.py's GraphedPlantWrite: a write of the hardware seam
-(push_command, then the plant's substeps) replayed as CUDA graphs.
+"""SimHardware's writes: runtime/plant.py's plant_write (push_command,
+then the plant's substeps) replayed as CUDA graphs by the graph runner
+"plant" (utils/graphs.py, tested on its own in test_torch_graphs.py).
 
 On the CPU (tier 1): over 20 hold writes from the stance spawn (the
 landing included) the runner gives what push_command and the substeps
 give eagerly, bit for bit, counting only eager writes and never a
 capture; SimHardware goes through it; a reference to a state's q, v or
-anchors held across the next write is unchanged; a capture's cuts fall
-between the substeps, each substep in its own plant.step range.
+anchors held across the next write is unchanged; a capture's segments
+(utils/graphs.segment) start between the substeps, each substep in its
+own plant.step range.
 
 On the card (marker `card`; skipped without one, and run there with
 `python3 -m pytest tests/test_torch_plant_graph.py --noconftest`): 20
@@ -26,13 +28,14 @@ from torch.utils._pytree import tree_flatten
 from qm_control_tpu_torch.experiments import _default_cfg, _standing_setup
 from qm_control_tpu_torch.runtime import hw as H
 from qm_control_tpu_torch.runtime import plant as P
+from qm_control_tpu_torch.utils import graphs as G
 
 WRITES = 20
 SUBSTEPS = 2
 
 
 def _counters():
-    return P.eager_writes, P.graph_captures, P.graph_replays
+    return G.counts("plant")
 
 
 def _delta(before):
@@ -62,6 +65,12 @@ def _assert_equal(got, want, what):
         assert a.dtype == b.dtype and torch.equal(a, b), what
 
 
+def _runner(model, state):
+    """The runner of a SimHardware on the state's device:
+    run(step, state, cmd, substeps)."""
+    return H.SimHardware(model, state.q, device=state.q.device)._write
+
+
 def _run(write, state, writes=WRITES):
     """`writes` hold writes through write(state, cmd): the states after
     each write."""
@@ -82,14 +91,14 @@ def cpu():
 
 def test_cpu_writes_equal_the_eager_write(cpu):
     model, state, step = cpu
-    run = P.GraphedPlantWrite(step)
+    run = _runner(model, state)
 
     def eager(s, cmd):
         s = P.push_command(s, cmd)
         for _ in range(SUBSTEPS):
             s, _ = step(s)
         return s
-    got = _run(lambda s, c: run(s, c, SUBSTEPS), state)
+    got = _run(lambda s, c: run(step, s, c, SUBSTEPS), state)
     want = _run(eager, state)
     for k, (a, b) in enumerate(zip(got, want)):
         assert type(a) is P.PlantState
@@ -101,9 +110,9 @@ def test_cpu_writes_equal_the_eager_write(cpu):
 
 def test_cpu_writes_count_eager_and_never_capture(cpu):
     model, state, step = cpu
-    run = P.GraphedPlantWrite(step)
+    run = _runner(model, state)
     before = _counters()
-    _run(lambda s, c: run(s, c, SUBSTEPS), state)
+    _run(lambda s, c: run(step, s, c, SUBSTEPS), state)
     assert _delta(before) == (WRITES, 0, 0)
     assert not run._graphs and not run._seen
 
@@ -111,7 +120,8 @@ def test_cpu_writes_count_eager_and_never_capture(cpu):
 def test_sim_hardware_writes_through_the_runner(cpu):
     model, state, step = cpu
     hw = H.SimHardware(model, state.q, device="cpu")
-    assert isinstance(hw._write, P.GraphedPlantWrite)
+    assert isinstance(hw._write, G.GraphRunner)
+    assert (hw._write.fn, hw._write.name) == (P.plant_write, "plant")
     before = _counters()
     for k in range(3):
         hw.write(_hold(state, k))
@@ -136,15 +146,18 @@ def test_a_held_state_is_unchanged_by_the_next_write(cpu, field):
 
 @pytest.mark.parametrize("substeps", [1, 2, 3])
 def test_a_capture_cuts_between_the_substeps(cpu, substeps):
-    """plant_write's cuts, as a capture sees them: one between each two
-    substeps, none before the first (push_command goes with it), each
-    substep in its own plant.step range."""
+    """plant_write's cuts, as a capture sees them: a plant.step segment
+    between each two substeps, none before the first (push_command goes
+    with it), each substep in its own plant.step range."""
     model, state, step = cpu
     cuts = []
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        out = P.plant_write(step, state, _hold(state, 0), substeps,
-                            cut=lambda: cuts.append(1))
-    assert len(cuts) == substeps - 1
+    G._capture.cut = cuts.append
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = P.plant_write(step, state, _hold(state, 0), substeps)
+    finally:
+        G._capture.cut = None
+    assert cuts == [P.STEP_SPAN] * (substeps - 1)
     ranges = [e for e in prof.profiler.kineto_results.events()
               if e.is_user_annotation() and e.name() == P.STEP_SPAN]
     assert len(ranges) == substeps
@@ -168,12 +181,12 @@ def _snapshot(state):
 @pytest.mark.card
 def test_replays_equal_eager_writes_bit_for_bit(card):
     model, state, step = card
-    run = P.GraphedPlantWrite(step)
+    run = _runner(model, state)
     before = _counters()
     got, held = [], None
     spawn = state
     for k in range(WRITES):
-        state = run(state, _hold(spawn, k), SUBSTEPS)
+        state = run(step, state, _hold(spawn, k), SUBSTEPS)
         got.append(state)
         if held is not None:        # write k - 1's state after write k
             _assert_equal(held[0], held[1], f"a replay wrote into {k - 1}")
@@ -192,13 +205,13 @@ def test_replays_on_the_callers_own_stream(card):
     on another stream than the capture's, then back, replay the same
     bits."""
     model, state, step = card
-    run = P.GraphedPlantWrite(step)
+    run = _runner(model, state)
     spawn = state
     side = torch.cuda.Stream()
     got = []
     for k in range(WRITES):
         with torch.cuda.stream(side) if 4 <= k < 14 else nullcontext():
-            state = run(state, _hold(spawn, k), SUBSTEPS)
+            state = run(step, state, _hold(spawn, k), SUBSTEPS)
         got.append(state)
     torch.cuda.current_stream().wait_stream(side)
     want = _run(lambda s, c: P.plant_write(step, s, c, SUBSTEPS), spawn)

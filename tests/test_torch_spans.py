@@ -26,6 +26,7 @@ from qm_control_tpu_torch.runtime import hw as H
 from qm_control_tpu_torch.runtime import plant as P
 from qm_control_tpu_torch.runtime.estimator import (observation_from_rbd,
                                                     rbd_state_from_plant)
+from qm_control_tpu_torch.utils import graphs as G
 from qm_control_tpu_torch.utils.timers import RepeatedTimer
 from qm_control_tpu_torch.wbc import wbc as W
 
@@ -187,7 +188,7 @@ def test_repeated_timer_times_the_card_stream():
 
 @pytest.mark.card
 def test_a_graph_replay_keeps_the_stage_ranges():
-    """A warm solve replayed from CUDA graphs (mpc/mpc.py GraphedSolve),
+    """A warm solve replayed from CUDA graphs (mpc/mpc.py solve_runner),
     traced: mpc.solve and each sqp.* range once on the host, each sqp.*
     range with device events launched under it (a kernel's host op lies
     inside the range), as qmbench/spans.py's readers link them."""
@@ -204,12 +205,12 @@ def test_a_graph_replay_keeps_the_stage_ranges():
     solver = M.MpcSolver(model, info, cfg, device="cuda")
     for k in range(2):                  # eager, then the capture
         solver.solve(0.01 * k, x0, target, ms)
-    replays = M.graph_replays
+    replays = G.counts("mpc")[2]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         solver.solve(0.02, x0, target, ms)
         torch.cuda.synchronize()
-    assert M.graph_replays == replays + 1
+    assert G.counts("mpc")[2] == replays + 1
     events = prof.profiler.kineto_results.events()
     host = [e for e in events if e.device_type() == DeviceType.CPU]
     ranges = {name: [(e.start_ns(), e.end_ns()) for e in host
