@@ -70,10 +70,12 @@ of them passed; each prints its wall time):
      1e-7 dust, the pivoted one is the better) on the real stance and trot
      stacks and on the stacks of 10 ticks of LoopConfig(fused_wbc=False)
      (no K1 launch in those ticks); make_batched_wbc(cascade="hoqp") at
-     B = 256 against make_batched_wbc(cascade="fused") (one K1 launch of
-     256 blocks): per gait the median torque gap within the JAX package's
-     cross-cascade bounds (1.0 Nm stance, 2.0 Nm trot,
-     tests/test_kernels.py) and each level's mean residual within 1.05x;
+     B = 256 against the benchmark's plain float64 cascade on the same
+     levels (qmbench/reference/wbc.py): per gait the median torque gap
+     within the JAX package's cross-cascade bounds (1.0 Nm stance, 2.0 Nm
+     trot, tests/test_kernels.py) and each level's mean residual within
+     1.05x; make_batched_wbc(cascade="fused") (one K1 launch of 256
+     blocks) printed against both;
   4g. the hardware seam at full width in a child process beside 4b-4d
      (runtime/hw.py over SimHardware with 2 plant substeps per 500 Hz
      tick, the spawn at 0.38 m, the hold target, stance, N = 67):
@@ -1149,21 +1151,28 @@ def _k1_batched_times(bt, work):
 
 def _batched_hoqp_check(model, info, dev, cfg, B=BATCH):
     """Phase 4f's batch: make_batched_wbc(cascade="hoqp") (vmap of the
-    pivoted cascade) against make_batched_wbc(cascade="fused") (one K1
-    launch of B blocks) on B standing states, stance and trot (joint
+    pivoted cascade) on B standing states, stance and trot (joint
     velocity 0.05) alternating, 1e-7 relative dust on q from a seeded
-    generator. Per gait the median torque gap within the JAX package's
-    cross-cascade bounds (1.0 Nm stance, 2.0 Nm trot, tests/test_kernels.py)
-    and at each level the mean residual of the pivoted cascade within 1.05
-    x K1's + 0.005 (1 + |b|): phase 3b's criterion, the bounds of two
-    different solvers. Returns the pivoted batch's wall ms."""
+    generator, against the benchmark's plain float64 cascade on the same
+    levels (qmbench/reference/wbc.py `cascade`, on the CPU, written apart
+    from the port). Per gait the median torque gap within the JAX
+    package's cross-cascade bounds (1.0 Nm stance, 2.0 Nm trot,
+    tests/test_kernels.py) and at each level the mean residual of the
+    pivoted cascade within 1.05 x the reference's + 0.005 (1 + |b|): phase
+    3b's criterion, the bounds of two different solvers. K1 on the same
+    states (make_batched_wbc(cascade="fused"), one launch of B blocks) is
+    printed against both: K1 is float32, and on the stance states it lies
+    ~1.4 Nm from the float64 optimum that the pivoted cascade's float64
+    level QPs reach. Returns the pivoted batch's wall ms."""
     import numpy as np
     import torch
     from torch.func import vmap
     from qm_control_tpu_torch.kernels import hoqp_fused as K
     from qm_control_tpu_torch.models import default_q
     from qm_control_tpu_torch.parallel import make_batched_wbc
+    from qm_control_tpu_torch.wbc.tasks import recover_torques
     from qm_control_tpu_torch.wbc.wbc import wbc_stack
+    from qmbench.reference.wbc import cascade
     rng = np.random.default_rng(13)
     x = torch.zeros(30, device=dev)
     x[6:30] = torch.as_tensor(default_q(base_pos=(0, 0, 0.4)),
@@ -1194,32 +1203,46 @@ def _batched_hoqp_check(model, info, dev, cfg, B=BATCH):
                              "grid-B K1 launch and none for the pivoted one")
     tau_max = torch.as_tensor(model.joint_effort, dtype=torch.float32,
                               device=dev)
-    stacks = vmap(lambda *a: wbc_stack(model, info, cfg.wbc, tau_max, *a)[1],
-                  in_dims=(0,) * 6 + (None, None))(*args)
+    m_, stacks = vmap(lambda *a: wbc_stack(model, info, cfg.wbc, tau_max,
+                                           *a),
+                      in_dims=(0,) * 6 + (None, None))(*args)
+    host = [[a.double().cpu() for a in t] for t in stacks]
+    xr = torch.stack([cascade(tuple(a[i] for a in host[0]),
+                              tuple(a[i] for a in host[1][:2]),
+                              tuple(a[i] for a in host[2][:2]))
+                      for i in range(B)]).to(dev, torch.float32)
+    tau_r = vmap(recover_torques)(m_, xr)
     for k, (name, bound) in enumerate((("stance", 1.0), ("trot", 2.0))):
         idx = torch.arange(k, B, 2, device=dev)
-        a, b = rh.x_opt.index_select(0, idx), rk.x_opt.index_select(0, idx)
+        a, b = rh.x_opt.index_select(0, idx), xr.index_select(0, idx)
+
+        def gap(t1, t2):
+            return np.median((t1.index_select(0, idx) - t2.index_select(
+                0, idx)).abs().amax(dim=1).cpu().numpy())
         dtau = (rh.torques.index_select(0, idx)
-                - rk.torques.index_select(0, idx)).abs().amax(dim=1)
+                - tau_r.index_select(0, idx)).abs().amax(dim=1)
         means = []
         for t in stacks:
             A, bb = t.A.index_select(0, idx), t.b.index_select(0, idx)
             r_h = (torch.einsum("bij,bj->bi", A, a) - bb).norm(dim=1)
-            r_k = (torch.einsum("bij,bj->bi", A, b) - bb).norm(dim=1)
-            means.append((float(r_h.mean()), float(r_k.mean()),
+            r_r = (torch.einsum("bij,bj->bi", A, b) - bb).norm(dim=1)
+            means.append((float(r_h.mean()), float(r_r.mean()),
                           float((0.005 * (1 + bb.norm(dim=1))).mean())))
-        means_ok = all(mh <= 1.05 * mk + sl for mh, mk, sl in means)
+        means_ok = all(mh <= 1.05 * mr + sl for mh, mr, sl in means)
         qs = np.percentile(dtau.cpu().numpy(), [50, 99, 100])
         print(f"[4f batched hoqp {name}] make_batched_wbc(cascade='hoqp') "
-              f"vs K1 grid = {B} over {len(idx)} dusted scenarios: |dtau| "
-              f"median {qs[0]:.4f} Nm (bound {bound}), p99 {qs[1]:.4f}, max "
-              f"{qs[2]:.4f}; level residual means pivoted "
-              f"{[round(m[0], 4) for m in means]} K1 "
-              f"{[round(m[1], 4) for m in means]} (bound 1.05x)")
+              f"vs the float64 reference over {len(idx)} dusted scenarios: "
+              f"|dtau| median {qs[0]:.4f} Nm (bound {bound}), p99 "
+              f"{qs[1]:.4f}, max {qs[2]:.4f}; level residual means pivoted "
+              f"{[round(m[0], 4) for m in means]} reference "
+              f"{[round(m[1], 4) for m in means]} (bound 1.05x); K1 grid = "
+              f"{B}: median |dtau| {gap(rk.torques, tau_r):.4f} Nm vs the "
+              f"reference, {gap(rk.torques, rh.torques):.4f} vs the pivoted")
         if not (bool(torch.isfinite(a).all()) and means_ok
                 and qs[0] < bound):
             raise AssertionError(f"phase 4f: the batched pivoted cascade "
-                                 f"disagrees with K1 on {name}")
+                                 f"disagrees with the float64 reference on "
+                                 f"{name}")
     print(f"[4f batched hoqp] B = {B}: {hoqp_ms:.1f} ms wall for the "
           f"vmapped pivoted cascade (first call)")
     return hoqp_ms

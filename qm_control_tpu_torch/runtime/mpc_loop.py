@@ -18,11 +18,15 @@ estimator pass, one warm-started solve whose FRESH policy the ticks
 execute (no MRT lag stack, as in the JAX module), then the ticks, each
 the estimator, policy evaluation, the MPC-only WBC (the pivoted cascade
 by default, as in JAX; K1 with fused_wbc=True), the hybrid law and the
-plant substeps. Nothing is read back to the host inside a cycle.
+plant substeps. Nothing is read back to the host inside a cycle. The
+ranges and counters are runtime.loop's: `loop.tick` around each tick,
+`loop.estimate` around each estimator pass, `tick_count` one per tick
+and `cycle_count` one per call.
 """
 from typing import NamedTuple, Optional
 
 import torch
+from torch.profiler import record_function
 
 from ..config import QmConfig, WbcGains
 from ..gaits.gait import ModeSchedule, contact_flags_from_mode
@@ -35,6 +39,7 @@ from ..ocp.problem import make_ocp
 from ..ocp.reference import TargetTrajectory, interpolate_ee_pose
 from ..solver.sqp import SqpSettings
 from ..wbc.wbc import hierarchical_mpc_wbc_update
+from . import loop as L
 from .estimator import observation_from_rbd, rbd_state_from_plant, rbd_to_qv
 from .loop import ControlLoop, CycleCarry, CycleMetrics, LoopConfig
 from .plant import HybridCommand, make_plant_step, push_command
@@ -44,6 +49,16 @@ from .safety import safety_check
 ARM_POS_KP = torch.tensor([5000., 5000., 5000., 500., 500., 500.])
 ARM_POS_KD = torch.tensor([8., 8., 8., 0.2, 0.2, 0.2])
 ARM_CMD_PERIOD = 1.0 / 100.0     # arm_control_loop_hz_ (:436)
+
+
+# a period's CycleMetrics, then the last tick's MPC-only WBC: its inputs
+# beside x_des (u_des, u_last (30,), q_meas, v_meas (24,), contact_flags
+# (4,)) and the cascade's solution x_opt (36,), from which the tick's
+# levels can be rebuilt and its cascade judged
+MpcCycleMetrics = NamedTuple("MpcCycleMetrics", [
+    *CycleMetrics.__annotations__.items(),
+    *[(k, torch.Tensor) for k in ("u_des", "u_last", "q_meas", "v_meas",
+                                  "contact_flags", "x_opt")]])
 
 
 class MpcCycleCarry(NamedTuple):
@@ -56,7 +71,7 @@ def make_mpc_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
                    settings: Optional[SqpSettings] = None,
                    fused_wbc: bool = False, device="cuda"):
     """cycle(carry: MpcCycleCarry, target, ms, gains) -> (carry',
-    CycleMetrics): one QMMpcController period on `device`. fused_wbc:
+    MpcCycleMetrics): one QMMpcController period on `device`. fused_wbc:
     False (the pivoted cascade, wbc/hoqp.py) or True (K1)."""
     from .. import resolve_device
     dev = resolve_device(device)
@@ -79,9 +94,11 @@ def make_mpc_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
 
     def cycle(carry: MpcCycleCarry, target: TargetTrajectory,
               ms: ModeSchedule, gains: WbcGains):
+        L.cycle_count += 1
         cb = carry.base
-        rbd = rbd_state_from_plant(model, cb.plant.q, cb.plant.v)
-        x_obs = observation_from_rbd(model, info, rbd, cb.last_yaw)
+        with record_function(L.ESTIMATE_SPAN):
+            rbd = rbd_state_from_plant(model, cb.plant.q, cb.plant.v)
+            x_obs = observation_from_rbd(model, info, rbd, cb.last_yaw)
         policy = mpc_step(ocp, model, info, cfg, settings, cb.t, x_obs,
                           target, ms, cb.W_warm, cb.X_warm, shift, warm)
         new_yaw = x_obs[9]
@@ -93,36 +110,42 @@ def make_mpc_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
         plant, input_last, t, safe = (cb.plant, cb.input_last, cb.t,
                                       cb.safe)
         for _ in range(ticks):
-            rbd_t = rbd_state_from_plant(model, plant.q, plant.v)
-            x_t = observation_from_rbd(model, info, rbd_t, new_yaw)
-            x_des, u_des, mode = evaluate_policy(policy, t)
-            q_meas, v_meas = rbd_to_qv(rbd_t)
-            flags = contact_flags_from_mode(mode).to(torch.float32)
-            wbc = hierarchical_mpc_wbc_update(
-                model, info, gains, tau_max, x_des, u_des, input_last,
-                q_meas, v_meas, flags, period, ee_wrench=plant.ee_wrench,
-                fused_cascade=fused_wbc)
-            plant = push_command(plant, HybridCommand(
-                pos_des=torch.cat([x_des[12:24], arm_cmd]),
-                vel_des=torch.cat([u_des[12:24], zeros6]), kp=kp, kd=kd,
-                ff=torch.cat([wbc.torques[:12], zeros6])))
-            for _ in range(substeps):
-                plant, _fc = plant_step(plant)
-            safe = safe & safety_check(x_t, policy.cost)
-            input_last, t = u_des, t + tick_dt
+            L.tick_count += 1
+            with record_function(L.TICK_SPAN):
+                with record_function(L.ESTIMATE_SPAN):
+                    rbd_t = rbd_state_from_plant(model, plant.q, plant.v)
+                    x_t = observation_from_rbd(model, info, rbd_t, new_yaw)
+                x_des, u_des, mode = evaluate_policy(policy, t)
+                q_meas, v_meas = rbd_to_qv(rbd_t)
+                flags = contact_flags_from_mode(mode).to(torch.float32)
+                u_last = input_last
+                wbc = hierarchical_mpc_wbc_update(
+                    model, info, gains, tau_max, x_des, u_des, input_last,
+                    q_meas, v_meas, flags, period, ee_wrench=plant.ee_wrench,
+                    fused_cascade=fused_wbc)
+                plant = push_command(plant, HybridCommand(
+                    pos_des=torch.cat([x_des[12:24], arm_cmd]),
+                    vel_des=torch.cat([u_des[12:24], zeros6]), kp=kp, kd=kd,
+                    ff=torch.cat([wbc.torques[:12], zeros6])))
+                for _ in range(substeps):
+                    plant, _fc = plant_step(plant)
+                safe = safe & safety_check(x_t, policy.cost)
+                input_last, t = u_des, t + tick_dt
 
         rbd_end = rbd_state_from_plant(model, plant.q, plant.v)
         p_ref, q_ref = interpolate_ee_pose(target, t)
         ee_pos = rbd_end[48:51]
         ee_q = torch.cat([rbd_end[54:55], rbd_end[51:54]])
-        metrics = CycleMetrics(
+        metrics = MpcCycleMetrics(
             ee_pos_err=torch.linalg.vector_norm(ee_pos - p_ref),
             ee_ori_err=torch.linalg.vector_norm(quat_distance(ee_q, q_ref)),
             base_height=plant.q[2], mpc_cost=policy.cost, safe=safe,
             base_pose=plant.q[:6], ee_pos=ee_pos, ee_ref=p_ref,
             feet_pos=K.contact_positions(model, plant.q),
             forces=wbc.forces, torques=wbc.torques, x_des=x_des,
-            mpc_alpha=policy.alpha, mpc_defect=policy.defect)
+            mpc_alpha=policy.alpha, mpc_defect=policy.defect,
+            u_des=u_des, u_last=u_last, q_meas=q_meas, v_meas=v_meas,
+            contact_flags=flags, x_opt=wbc.x_opt)
         base = CycleCarry(plant=plant, W_warm=policy.W, X_warm=policy.X,
                           input_last=input_last, last_yaw=new_yaw, t=t,
                           safe=safe)
@@ -168,7 +191,7 @@ class MpcControlLoop:
         for _ in range(num_cycles):
             carry, m = self._cycle(carry, target, ms, self.gains)
             out.append(m)
-        metrics = CycleMetrics(*[torch.stack(xs) for xs in zip(*out)])
+        metrics = MpcCycleMetrics(*[torch.stack(xs) for xs in zip(*out)])
         if log is not None:
             t_end = float(carry.base.t)
             host = {k: v.detach().cpu().numpy()

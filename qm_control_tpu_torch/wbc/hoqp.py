@@ -12,12 +12,15 @@ qm_wbc/src/HoQp.cpp:12-158):
 Each level is solved by the fixed-iteration interior point of qp.py on
 its full KKT system (decision variables and slacks, Gauss-Jordan with
 diagonal pivoting), where K1 (kernels.hoqp_fused) eliminates the slacks
-by a Schur complement. Static shapes, no host read: it runs under
+by a Schur complement. The levels are built in the tasks' dtype and each
+level's interior point runs in float64, as upstream's qpOASES solves in
+double (QP_DTYPE). Static shapes, no host read: it runs under
 torch.func.vmap (parallel.make_batched_wbc(cascade="hoqp")).
 """
 from typing import List, Sequence
 
 import torch
+from torch.profiler import record_function
 
 from .qp import solve_qp
 from .tasks import NUM_DECISION_VARS, Task
@@ -36,6 +39,23 @@ CLAMP_CARRIED = True
 # projector is the more accurate cascade against the f64 referee)
 USE_QR_BASIS = False
 DEFAULT_QP_ITERS = 10   # IP iterations per level (read at call time)
+# the dtype of each level's interior point. Below a level the decision
+# space keeps the directions the null-space projector removed, held only
+# by the ridge, so the IP's Newton matrix spans ~1e11 from its largest to
+# its smallest eigenvalue: past float32's reach, where the Gauss-Jordan's
+# last pivots are rounding and the IP diverges (the MPC-only stance stack
+# fails that way under 3 of 9 draws of 1e-7 dust, in JAX too). float64
+# solves every draw; the levels' data stay in the tasks' dtype
+QP_DTYPE = torch.float64
+
+# the record_function range of one level, from its Gram to its null-space
+# update
+LEVEL_SPAN = "hoqp.level"
+
+# cascades and levels solved since import, one per call: a vmapped batch
+# counts once, as K1's launch_count counts its one launch
+solve_count = 0
+level_count = 0
 
 
 def _kernel_projector(Az):
@@ -61,8 +81,11 @@ def hoqp_solve(tasks: Sequence[Task], qp_iters: int = None):
     """Solve the lexicographic cascade, tasks ordered highest priority
     first. Returns the optimal decision vector x (36,). qp_iters: the
     fixed IP iteration count per level (default DEFAULT_QP_ITERS)."""
+    global solve_count, level_count
+    solve_count += 1
     nx = NUM_DECISION_VARS
     f = dict(dtype=tasks[0].A.dtype, device=tasks[0].A.device)
+    q = QP_DTYPE
     if qp_iters is None:
         qp_iters = DEFAULT_QP_ITERS
     x = torch.zeros(nx, **f)
@@ -70,51 +93,56 @@ def hoqp_solve(tasks: Sequence[Task], qp_iters: int = None):
     prev: List = []    # [(D, f, v_opt)] accumulated inequality levels
 
     for task in tasks:
-        ma, nv = task.A.shape[0], task.D.shape[0]
-        Az = task.A @ Z                                   # (ma, nx)
-        gram = Az.T @ Az
-        ridge = _EPS_H * (gram.diagonal().max() + 1e-3)
-        H_z = gram + ridge * torch.eye(nx, **f)
-        c_z = Az.T @ (task.A @ x - task.b)
+        with record_function(LEVEL_SPAN):
+            level_count += 1
+            ma, nv = task.A.shape[0], task.D.shape[0]
+            Az = task.A @ Z                                   # (ma, nx)
+            gram = Az.T @ Az
+            ridge = _EPS_H * (gram.diagonal().max() + 1e-3)
+            H_z = gram + ridge * torch.eye(nx, **f)
+            c_z = Az.T @ (task.A @ x - task.b)
 
-        G_rows, h_rows = [], []
-        if nv > 0:                                        # -v <= 0
-            G_rows.append(torch.cat([torch.zeros(nv, nx, **f),
-                                     -torch.eye(nv, **f)], dim=1))
-            h_rows.append(torch.zeros(nv, **f))
-        for (Dq, fq, vq) in prev:
-            G_rows.append(torch.cat(
-                [Dq @ Z, torch.zeros(Dq.shape[0], nv, **f)], dim=1))
-            hq = fq - Dq @ x + vq
-            h_rows.append(torch.clamp(hq, min=0.0) if CLAMP_CARRIED else hq)
-        if nv > 0:
-            G_rows.append(torch.cat([task.D @ Z, -torch.eye(nv, **f)], dim=1))
-            h_rows.append(task.f - task.D @ x)
+            G_rows, h_rows = [], []
+            if nv > 0:                                        # -v <= 0
+                G_rows.append(torch.cat([torch.zeros(nv, nx, **f),
+                                         -torch.eye(nv, **f)], dim=1))
+                h_rows.append(torch.zeros(nv, **f))
+            for (Dq, fq, vq) in prev:
+                G_rows.append(torch.cat(
+                    [Dq @ Z, torch.zeros(Dq.shape[0], nv, **f)], dim=1))
+                hq = fq - Dq @ x + vq
+                h_rows.append(torch.clamp(hq, min=0.0) if CLAMP_CARRIED
+                              else hq)
+            if nv > 0:
+                G_rows.append(torch.cat([task.D @ Z, -torch.eye(nv, **f)],
+                                        dim=1))
+                h_rows.append(task.f - task.D @ x)
 
-        H = torch.cat([torch.cat([H_z, torch.zeros(nx, nv, **f)], dim=1),
-                       torch.cat([torch.zeros(nv, nx, **f),
-                                  torch.eye(nv, **f)], dim=1)])
-        c = torch.cat([c_z, torch.zeros(nv, **f)])
+            H = torch.cat([torch.cat([H_z, torch.zeros(nx, nv, **f)], dim=1),
+                           torch.cat([torch.zeros(nv, nx, **f),
+                                      torch.eye(nv, **f)], dim=1)])
+            c = torch.cat([c_z, torch.zeros(nv, **f)])
 
-        def H_mv(zv, Az=Az, ridge=ridge, nv=nv):
-            """Factor-form H matvec Az'(Az z) + ridge z (+ the slack
-            block's identity): the refinement target (qp._pd_solve)."""
-            z = zv[:nx]
-            out_z = Az.T @ (Az @ z) + ridge * z
-            return out_z if nv == 0 else torch.cat([out_z, zv[nx:]])
+            def H_mv(zv, Az=Az.to(q), ridge=ridge.to(q), nv=nv):
+                """Factor-form H matvec Az'(Az z) + ridge z (+ the slack
+                block's identity): the refinement target (qp._pd_solve)."""
+                z = zv[:nx]
+                out_z = Az.T @ (Az @ z) + ridge * z
+                return out_z if nv == 0 else torch.cat([out_z, zv[nx:]])
 
-        if G_rows:
-            sol = solve_qp(H, c, torch.cat(G_rows), torch.cat(h_rows),
-                           num_iters=qp_iters, H_mv=H_mv)
-            zv = sol.x
-        else:
-            zv = torch.linalg.solve_ex(H, -c)[0]
-        z, v = zv[:nx], zv[nx:]
+            if G_rows:
+                sol = solve_qp(H.to(q), c.to(q), torch.cat(G_rows).to(q),
+                               torch.cat(h_rows).to(q), num_iters=qp_iters,
+                               H_mv=H_mv)
+                zv = sol.x.to(x.dtype)
+            else:
+                zv = torch.linalg.solve_ex(H, -c)[0]
+            z, v = zv[:nx], zv[nx:]
 
-        x = x + Z @ z
-        if nv > 0:
-            prev.append((task.D, task.f, v))
-        if ma > 0:
-            Z = Z @ (_kernel_basis(Az) if USE_QR_BASIS
-                     else _kernel_projector(Az))
+            x = x + Z @ z
+            if nv > 0:
+                prev.append((task.D, task.f, v))
+            if ma > 0:
+                Z = Z @ (_kernel_basis(Az) if USE_QR_BASIS
+                         else _kernel_projector(Az))
     return x

@@ -120,22 +120,24 @@ def test_hierarchical_wbc_wrapper_cpu(setup):
 def test_unported_cascades_raise(setup):
     """Every cascade is ported now (the name is kept from when the pivoted
     one raised). fused_cascade=False is the pivoted cascade
-    (wbc/hoqp.py): bit for bit hoqp_solve on the stack, and JAX's
-    hierarchical_wbc_update with its default pivoted cascade on every
-    level by tests/test_torch_kernel_hoqp.py's residual criterion, its
-    objectives within twice JAX's own move under 1e-7 dust on the stack
-    (four draws) plus 0.2 max(|o|, 1) + 0.6, and the torques within twice
-    JAX's own torque move plus 0.1 Nm (measured 0.66 Nm stance, 0.09 Nm
-    trot, against JAX's dust moves of 0.90 / 2.2 Nm; on trot the level-0
-    violation alone ranges 0.0-4.1 over JAX's own dust draws: these gains
-    make a flatter optimum than tests/test_torch_qp.py's stacks). "xla"
-    is cascade_exact on the
-    stack. A loop built with LoopConfig(fused_wbc=False) ticks through the
+    (wbc/hoqp.py): bit for bit hoqp_solve on the stack, and JAX's pivoted
+    cascade on the stack, in float64 as the port's level QPs
+    (wbc/hoqp.py QP_DTYPE), with JAX's torque recovery: on every level by
+    tests/test_torch_kernel_hoqp.py's residual criterion, its objectives
+    within twice JAX's own move under 1e-7 dust on the stack (four draws)
+    plus 0.2 max(|o|, 1) + 0.6, and the torques within twice JAX's own
+    torque move plus 0.1 Nm (measured 0.0017 Nm stance, 0.011 Nm trot;
+    JAX's dust moves 8e-6 / 4e-6 Nm). JAX's float32 cascade is past a
+    comparison on stance: it leaves level 0's inequalities violated by
+    3.07 where the port's float64 QPs leave 0.021, and its own dust moves
+    that violation by 0.57 only. "xla" is cascade_exact on the stack. A
+    loop built with LoopConfig(fused_wbc=False) ticks through the
     pivoted cascade: 3 ticks from the standing spawn against the same loop
     with JAX's hoqp_solve as its cascade, within twice that loop's own
     spread under 1e-7 dust on q plus tests/test_torch_loop.py's floors
     (q 1e-4, v 1e-3, torques 0.1 Nm, forces 1 N)."""
     import jax
+    from qm_control_tpu.wbc import tasks as JT
     from qm_control_tpu.wbc.hoqp import hoqp_solve as j_hoqp
     from qm_control_tpu.wbc.tasks import Task as JTask
     from qm_control_tpu_torch.config import QmConfig as TQmConfig
@@ -143,40 +145,42 @@ def test_unported_cascades_raise(setup):
     from qm_control_tpu_torch.kernels.cascade_exact import cascade_exact
     from qm_control_tpu_torch.runtime.loop import ControlLoop, LoopConfig
     from qm_control_tpu_torch.wbc.hoqp import hoqp_solve
-    from qm_control_tpu_torch.wbc.tasks import recover_torques
     jm, tm, ji, ti, x, tgains, _ = setup
     tau_max = torch.as_tensor(tm.joint_effort, dtype=torch.float32)
     from test_torch_kernel_hoqp import _objectives, _residuals_ok
-    jgains = dataclasses.replace(JGains(), arm_settling_time=0.0)
-    jpivot = jax.jit(lambda *a: j_update(
-        jm, ji, jgains, jnp.asarray(jm.joint_effort, jnp.float32), *a))
     j_cascade = jax.jit(lambda ts: j_hoqp(ts))
+
+    def j64(stack):
+        with jax.enable_x64(True):
+            return np.asarray(j_hoqp([JTask(*[jnp.asarray(a, jnp.float64)
+                                              for a in t]) for t in stack]))
     rng = np.random.default_rng(0)
     for case in CASES:
         flags, vq, _ = CASES[case]
         np_args = _args(x, flags, vq)
         args = [torch.as_tensor(np.asarray(a)) for a in np_args]
         res = t_update(tm, ti, tgains, tau_max, *args, fused_cascade=False)
-        m_, stack = wbc_stack(tm, ti, tgains, tau_max, *args)
+        _, stack = wbc_stack(tm, ti, tgains, tau_max, *args)
         assert torch.equal(res.x_opt, hoqp_solve(list(stack)))
-        rj = jpivot(*[jnp.asarray(a) for a in np_args])
         s64 = [tuple(a.numpy().astype(np.float64) for a in t) for t in stack]
-        xt, xj = (np.asarray(a, np.float64) for a in (res.x_opt, rj.x_opt))
+        jmd, _ = JT.compute_wbc_data(jm, ji, *map(jnp.asarray, np_args[:7]))
+
+        def j_torques(x_opt):
+            return np.asarray(JT.recover_torques(
+                jmd, jnp.asarray(x_opt, jnp.float32)))
+        xt, xj = np.asarray(res.x_opt, np.float64), j64(s64)
+        rj_torques = j_torques(xj)
         assert _residuals_ok(s64, xt, xj)
         ot, oj = _objectives(s64, xt), _objectives(s64, xj)
         spread, o_spread = 0.0, np.zeros_like(oj)
         for _ in range(4):
-            xd = np.asarray(j_cascade([JTask(*[jnp.asarray(a.numpy() * (
-                1.0 + 1e-7 * rng.standard_normal(a.shape)), jnp.float32)
-                for a in t]) for t in stack]))
-            spread = max(spread, float((recover_torques(
-                m_, torch.from_numpy(xd)) - torch.from_numpy(
-                    np.asarray(rj.torques))).abs().max()))
-            o_spread = np.maximum(o_spread, np.abs(
-                _objectives(s64, xd.astype(np.float64)) - oj))
+            xd = j64([tuple(a * (1.0 + 1e-7 * rng.standard_normal(a.shape))
+                            for a in t) for t in s64])
+            spread = max(spread, np.abs(j_torques(xd) - rj_torques).max())
+            o_spread = np.maximum(o_spread, np.abs(_objectives(s64, xd) - oj))
         assert (np.abs(ot - oj) <= 2.0 * o_spread + 0.2 * np.maximum(
             np.abs(oj), 1.0) + 0.6).all(), (case, ot, oj, o_spread)
-        err = np.abs(res.torques.numpy() - np.asarray(rj.torques)).max()
+        err = np.abs(res.torques.numpy() - rj_torques).max()
         assert err <= 2.0 * spread + 0.1, (case, err, spread)
         xla = t_update(tm, ti, tgains, tau_max, *args, fused_cascade="xla")
         assert torch.equal(xla.x_opt, cascade_exact(*stack))
