@@ -75,7 +75,13 @@ of them passed; each prints its wall time):
      within the JAX package's cross-cascade bounds (1.0 Nm stance, 2.0 Nm
      trot, tests/test_kernels.py) and each level's mean residual within
      1.05x; make_batched_wbc(cascade="fused") (one K1 launch of 256
-     blocks) printed against both;
+     blocks) printed against both; then 16 of those stacks one at a time
+     through the graph runner "hoqp" (wbc.pivoted_runner, as
+     make_mpc_cycle's ticks call it: eager, captured, then replayed),
+     equal bit for bit to hoqp_solve on every stack, per gait the
+     largest torque gap to the reference within the same bounds, the
+     runner's counts, and one cascade's CUDA-event ms and kernels eager
+     and replayed;
   4g. the hardware seam at full width in a child process beside 4b-4d
      (runtime/hw.py over SimHardware with 2 plant substeps per 500 Hz
      tick, the spawn at 0.38 m, the hold target, stance, N = 67):
@@ -1163,7 +1169,8 @@ def _batched_hoqp_check(model, info, dev, cfg, B=BATCH):
     states (make_batched_wbc(cascade="fused"), one launch of B blocks) is
     printed against both: K1 is float32, and on the stance states it lies
     ~1.4 Nm from the float64 optimum that the pivoted cascade's float64
-    level QPs reach. Returns the pivoted batch's wall ms."""
+    level QPs reach. Returns the pivoted batch's wall ms and
+    _hoqp_graph_check's numbers."""
     import numpy as np
     import torch
     from torch.func import vmap
@@ -1245,7 +1252,65 @@ def _batched_hoqp_check(model, info, dev, cfg, B=BATCH):
                                  f"{name}")
     print(f"[4f batched hoqp] B = {B}: {hoqp_ms:.1f} ms wall for the "
           f"vmapped pivoted cascade (first call)")
-    return hoqp_ms
+    return hoqp_ms, _hoqp_graph_check(stacks, m_, xr, tau_r)
+
+
+def _hoqp_graph_check(stacks, m_, xr, tau_r, n=16):
+    """Phase 4f's replay: the first n stacks of _batched_hoqp_check's
+    batch (stance and trot alternating), one at a time through a graph
+    runner "hoqp" (wbc.pivoted_runner, as make_mpc_cycle's ticks call it:
+    the first call eager, the second captured, the others replayed),
+    against hoqp_solve on the same stack (equal bit for bit on every
+    stack, as the replay runs the eager call's kernels on the same
+    inputs) and the float64 reference xr (per gait the largest torque gap
+    within the batch check's bounds); then one cascade's CUDA-event ms
+    and its kernels (torch.profiler), eager and replayed. Returns those
+    numbers."""
+    import torch
+    from torch.func import vmap
+    from qm_control_tpu_torch.utils.graphs import counts
+    from qm_control_tpu_torch.wbc import wbc as W
+    from qm_control_tpu_torch.wbc.hoqp import hoqp_solve
+    from qm_control_tpu_torch.wbc.tasks import recover_torques
+
+    def levels(i):
+        return [type(t)(*[a[i] for a in t]) for t in stacks]
+    cascade = W.pivoted_runner()
+    before = counts("hoqp")
+    xg, dxs = xr.clone(), []
+    for i in range(n):
+        xg[i] = cascade(*levels(i))
+        dxs.append(float((xg[i] - hoqp_solve(levels(i))).abs().max()))
+    dx = max(dxs)
+    calls = tuple(b - a for a, b in zip(before, counts("hoqp")))
+    dtau = (vmap(recover_torques)(m_, xg)[:n] - tau_r[:n]).abs().amax(dim=1)
+    gaps = {name: float(dtau[k::2].max())
+            for k, name in enumerate(("stance", "trot"))}
+    st = levels(0)
+    eager_ms = _cuda_ms(lambda: hoqp_solve(st), reps=5)
+    replay_ms = _cuda_ms(lambda: cascade(*st), reps=5)
+    k_eager, d_eager = _device_profile(lambda: hoqp_solve(st))
+    k_replay, d_replay = _device_profile(lambda: cascade(*st))
+    print(f"[4f hoqp graphs] {n} stacks through the runner 'hoqp': "
+          f"(eager, captures, replays) {calls}; max|dx| vs hoqp_solve on "
+          f"the same stack {dx:.3e} (bound 0, {sum(d == 0.0 for d in dxs)}"
+          f" of {n} equal); max |dtau| vs the float64 reference stance "
+          f"{gaps['stance']:.4f} Nm (bound 1.0), trot {gaps['trot']:.4f} "
+          f"(bound 2.0), median {float(dtau.median()):.4f}; "
+          f"counts('hoqp') {counts('hoqp')}")
+    print(f"[4f hoqp graphs] one cascade by CUDA events: eager "
+          f"{eager_ms:.2f} ms, replayed {replay_ms:.2f} ms (median of 5); "
+          f"kernels eager {k_eager} ({d_eager:.3f} ms device), replayed "
+          f"{k_replay} ({d_replay:.3f} ms device)")
+    if not (calls == (1, 1, n - 1) and dx == 0.0 and gaps["stance"] < 1.0
+            and gaps["trot"] < 2.0 and bool(torch.isfinite(xg).all())):
+        raise AssertionError("phase 4f: the replayed pivoted cascade did "
+                             "not replay, differs from the eager call or "
+                             "disagrees with the float64 reference")
+    return dict(calls=calls, max_dx_eager=dx, dtau_max=gaps,
+                eager_ms=eager_ms, replay_ms=replay_ms, kernels=k_eager,
+                device_ms=d_eager, replay_kernels=k_replay,
+                replay_device_ms=d_replay)
 
 
 def _random_lq(rng, N, nx, nw, scale, dev):
@@ -2586,7 +2651,7 @@ def _phases(smi, clock, children):
 
     # ---- 4f. the pivoted cascade against K1 ---------------------------------
     pivot_launches = pivoted_vs_k1(model, info, dev, real, cfg, q0, dusted)
-    hoqp_batched_ms = _batched_hoqp_check(model, info, dev, cfg)
+    hoqp_batched_ms, hoqp_graph = _batched_hoqp_check(model, info, dev, cfg)
     clock.done("4f")
 
     # ---- 9. scale-out, its gates (in the wait for the children) ------------
@@ -2905,7 +2970,7 @@ def _phases(smi, clock, children):
         "chained_tick_ms": chained_tick_ms, "hardware": hw,
         "main_ticks": HOLD_TICKS, "experiments": exp_walls,
         "mpc_variant": variant, "hoqp_solve": hoqp_prof,
-        "hoqp_batched_ms": hoqp_batched_ms,
+        "hoqp_batched_ms": hoqp_batched_ms, "hoqp_graph": hoqp_graph,
         "riccati": dict(solves=solve_profiles, cost_rel=par_dc, w_rel=par_dw,
                         lq_rel=lq_rel), "ilqr_err": ilqr_err,
         "batched_mpc": mpc_b,

@@ -17,11 +17,14 @@ One MPC period per `cycle` call, as runtime.loop.make_cycle: the
 estimator pass, one warm-started solve whose FRESH policy the ticks
 execute (no MRT lag stack, as in the JAX module), then the ticks, each
 the estimator, policy evaluation, the MPC-only WBC (the pivoted cascade
-by default, as in JAX; K1 with fused_wbc=True), the hybrid law and the
-plant substeps. Nothing is read back to the host inside a cycle. The
-ranges and counters are runtime.loop's: `loop.tick` around each tick,
-`loop.estimate` around each estimator pass, `tick_count` one per tick
-and `cycle_count` one per call.
+by default, as in JAX, through the graph runner "hoqp" of
+wbc.pivoted_runner: on the card a cycle maker's second cascade captures
+one CUDA graph per level and later ones replay them; K1 with
+fused_wbc=True, eager), the hybrid law and the plant substeps. Nothing
+is read back to the host inside a cycle. The ranges and counters are
+runtime.loop's: `loop.tick` around each tick, `loop.estimate` around
+each estimator pass, `tick_count` one per tick and `cycle_count` one
+per call.
 """
 from typing import NamedTuple, Optional
 
@@ -38,7 +41,7 @@ from ..mpc.mpc import evaluate_policy, mpc_step
 from ..ocp.problem import make_ocp
 from ..ocp.reference import TargetTrajectory, interpolate_ee_pose
 from ..solver.sqp import SqpSettings
-from ..wbc.wbc import hierarchical_mpc_wbc_update
+from ..wbc.wbc import hierarchical_mpc_wbc_update, pivoted_runner
 from . import loop as L
 from .estimator import observation_from_rbd, rbd_state_from_plant, rbd_to_qv
 from .loop import ControlLoop, CycleCarry, CycleMetrics, LoopConfig
@@ -91,6 +94,9 @@ def make_mpc_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
     kp = torch.cat([torch.zeros(12, **f32), ARM_POS_KP.to(dev)])
     kd = torch.cat([loop_cfg.leg_kd * torch.ones(12, **f32),
                     ARM_POS_KD.to(dev)])
+    # the ticks' levels are single and one shape every tick (contact
+    # masking is by bounds): one key of the runner
+    cascade = None if fused_wbc else pivoted_runner()
 
     def cycle(carry: MpcCycleCarry, target: TargetTrajectory,
               ms: ModeSchedule, gains: WbcGains):
@@ -122,7 +128,7 @@ def make_mpc_cycle(model: RobotModel, info: C.CentroidalInfo, cfg: QmConfig,
                 wbc = hierarchical_mpc_wbc_update(
                     model, info, gains, tau_max, x_des, u_des, input_last,
                     q_meas, v_meas, flags, period, ee_wrench=plant.ee_wrench,
-                    fused_cascade=fused_wbc)
+                    fused_cascade=fused_wbc, cascade=cascade)
                 plant = push_command(plant, HybridCommand(
                     pos_des=torch.cat([x_des[12:24], arm_cmd]),
                     vel_des=torch.cat([u_des[12:24], zeros6]), kp=kp, kd=kd,

@@ -15,13 +15,17 @@ diagonal pivoting), where K1 (kernels.hoqp_fused) eliminates the slacks
 by a Schur complement. The levels are built in the tasks' dtype and each
 level's interior point runs in float64, as upstream's qpOASES solves in
 double (QP_DTYPE). Static shapes, no host read: it runs under
-torch.func.vmap (parallel.make_batched_wbc(cascade="hoqp")).
+torch.func.vmap (parallel.make_batched_wbc(cascade="hoqp")) and under a
+CUDA-graph capture (the graph runner "hoqp" of wbc.pivoted_runner), where
+each level after the first starts a segment of its own
+(utils/graphs.segment).
 """
 from typing import List, Sequence
 
 import torch
 from torch.profiler import record_function
 
+from ..utils.graphs import segment
 from .qp import solve_qp
 from .tasks import NUM_DECISION_VARS, Task
 
@@ -53,9 +57,17 @@ QP_DTYPE = torch.float64
 LEVEL_SPAN = "hoqp.level"
 
 # cascades and levels solved since import, one per call: a vmapped batch
-# counts once, as K1's launch_count counts its one launch
+# counts once, as K1's launch_count counts its one launch. Bumped on the
+# host by `count`, outside the body a CUDA graph replays
 solve_count = 0
 level_count = 0
+
+
+def count(levels: int):
+    """Count one cascade of `levels` levels."""
+    global solve_count, level_count
+    solve_count += 1
+    level_count += levels
 
 
 def _kernel_projector(Az):
@@ -80,9 +92,17 @@ def _kernel_basis(Az, rel_tol=1e-5):
 def hoqp_solve(tasks: Sequence[Task], qp_iters: int = None):
     """Solve the lexicographic cascade, tasks ordered highest priority
     first. Returns the optimal decision vector x (36,). qp_iters: the
-    fixed IP iteration count per level (default DEFAULT_QP_ITERS)."""
-    global solve_count, level_count
-    solve_count += 1
+    fixed IP iteration count per level (default DEFAULT_QP_ITERS).
+    Counted (`count`), then `solve_levels`."""
+    count(len(tasks))
+    return solve_levels(tasks, qp_iters)
+
+
+def solve_levels(tasks: Sequence[Task], qp_iters: int = None):
+    """hoqp_solve without the counters: what a CUDA graph captures. Under
+    a capture each level after the first starts a segment (the runner's
+    first segment is the first level), so that a replay opens one
+    LEVEL_SPAN range per level."""
     nx = NUM_DECISION_VARS
     f = dict(dtype=tasks[0].A.dtype, device=tasks[0].A.device)
     q = QP_DTYPE
@@ -92,9 +112,10 @@ def hoqp_solve(tasks: Sequence[Task], qp_iters: int = None):
     Z = torch.eye(nx, **f)
     prev: List = []    # [(D, f, v_opt)] accumulated inequality levels
 
-    for task in tasks:
+    for i, task in enumerate(tasks):
+        if i:
+            segment(LEVEL_SPAN)
         with record_function(LEVEL_SPAN):
-            level_count += 1
             ma, nv = task.A.shape[0], task.D.shape[0]
             Az = task.A @ Z                                   # (ma, nx)
             gram = Az.T @ Az

@@ -19,7 +19,10 @@ card, its plain version on CPU tensors, one launch for a whole
 package's batch path) or False, the pivoted cascade (wbc/hoqp.py +
 wbc/qp.py). hierarchical_wbc_update defaults to K1 where the JAX function
 defaults to the pivoted cascade; hierarchical_mpc_wbc_update keeps JAX's
-default, the pivoted cascade.
+default, the pivoted cascade. `pivoted_runner` gives the pivoted cascade
+through the graph runner "hoqp" (utils/graphs.py), for a caller whose
+levels are single, unbatched and the same shape every call
+(runtime/mpc_loop.py make_mpc_cycle).
 """
 import functools
 from typing import NamedTuple
@@ -31,7 +34,7 @@ from ..config import WbcGains
 from ..models import centroidal as C
 from ..models.spec import RobotModel
 from ..utils.graphs import GraphRunner
-from .hoqp import hoqp_solve
+from .hoqp import LEVEL_SPAN, count, solve_levels
 from .tasks import (Task, WbcData, arm_joint_tracking_task,
                     base_angular_task, base_height_task, base_linear_task,
                     compute_wbc_data, contact_force_task, ee_angular_task,
@@ -62,7 +65,43 @@ def _hard_level(m, gains: WbcGains, tau_max, ee_wrench):
 
 
 def _pivoted(t0, t1, t2):
-    return hoqp_solve([t0, t1, t2])
+    """The pivoted cascade of the three levels, uncounted: the body that
+    the graph runner "hoqp" captures."""
+    return solve_levels([t0, t1, t2])
+
+
+def _counted(cascade):
+    """cascade(*levels) with wbc/hoqp.py's counters bumped on the host
+    first, outside anything a graph replays, so that a replay counts."""
+    def counted(*levels):
+        count(len(levels))
+        return cascade(*levels)
+    return counted
+
+
+def pivoted_runner():
+    """The pivoted cascade (t0, t1, t2) -> x, counted, through a graph
+    runner "hoqp" (utils/graphs.py): on CPU tensors eager; on the card a
+    key's first call eager, the second captures one CUDA graph per level,
+    later calls replay them, each under a LEVEL_SPAN range. `_pivoted` is
+    looked up at each eager call or capture, as `_cascade` looks it up."""
+    return _counted(GraphRunner(lambda t0, t1, t2: _pivoted(t0, t1, t2),
+                                "hoqp", first=LEVEL_SPAN))
+
+
+def _cascade(fused_cascade, cascade):
+    """The solver of the three levels an update runs: `cascade` if given
+    (pivoted_runner's, or a caller's own), else kernels.cascade_exact
+    ("xla"), K1 (True) or the pivoted cascade, counted (False)."""
+    if cascade is not None:
+        return cascade
+    if fused_cascade == "xla":
+        from ..kernels.cascade_exact import cascade_exact
+        return cascade_exact
+    if fused_cascade:
+        from ..kernels.hoqp_fused import fused_hoqp
+        return fused_hoqp
+    return _counted(_pivoted)
 
 
 def _result(m, x_opt, ee_wrench) -> WbcResult:
@@ -123,16 +162,11 @@ def hierarchical_wbc_update(model: RobotModel, info: C.CentroidalInfo,
     measured world wrench [f(3); tau(3)] at the arm EE, entering the EoM,
     torque limits and torque recovery. fused_cascade: True (K1,
     kernels.hoqp_fused.fused_hoqp), "xla" (kernels.cascade_exact) or
-    False (the pivoted cascade, wbc.hoqp.hoqp_solve). cascade: an
+    False (the pivoted cascade, wbc.hoqp). cascade: an
     explicit solver of the three levels, overriding fused_cascade;
     chip_smoke.py passes cascade_plain to hold the main path on the card
     against the plain version."""
-    if cascade is None and fused_cascade == "xla":
-        from ..kernels.cascade_exact import cascade_exact as cascade
-    elif cascade is None and fused_cascade:
-        from ..kernels.hoqp_fused import fused_hoqp as cascade
-    elif cascade is None:
-        cascade = _pivoted
+    cascade = _cascade(fused_cascade, cascade)
     m, (t0, t1, t2) = wbc_stack(model, info, gains, tau_max, state_des,
                                 input_des, input_last, q, v, contact_flags,
                                 period, time, ee_wrench)
@@ -166,19 +200,18 @@ def hierarchical_mpc_wbc_update(model: RobotModel, info: C.CentroidalInfo,
                                 state_des, input_des, input_last,
                                 q, v, contact_flags, period,
                                 ee_wrench=None,
-                                fused_cascade: bool = False) -> WbcResult:
+                                fused_cascade: bool = False,
+                                cascade=None) -> WbcResult:
     """MPC-only variant: no arm/EE tasks (the arm is handled by position
     controllers). fused_cascade: False (the pivoted cascade, the JAX
-    default) or True (K1)."""
+    default) or True (K1). cascade: an explicit solver of the three
+    levels, overriding fused_cascade (make_mpc_cycle passes
+    pivoted_runner's)."""
     m, stack = mpc_wbc_stack(model, info, gains, tau_max, state_des,
                              input_des, input_last, q, v, contact_flags,
                              period, ee_wrench)
-    if fused_cascade:
-        from ..kernels.hoqp_fused import fused_hoqp as cascade
-    else:
-        cascade = _pivoted
     with record_function(CASCADE_SPAN):
-        x_opt = cascade(*stack)
+        x_opt = _cascade(bool(fused_cascade), cascade)(*stack)
     return _result(m, x_opt, ee_wrench)
 
 
